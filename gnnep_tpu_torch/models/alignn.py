@@ -1,0 +1,336 @@
+"""Heteroscedastic ALIGNN regressor as an `nn.Module` (eval forward).
+
+Counterpart of `gnnep_tpu.models.alignn`, with the same architecture and
+parameter layout (weights `[in, out]`, as JAX stores them):
+
+- 2-layer MLP encoders for node(206)→H, edge(36)→H, angle(11)→H
+- L interleaved blocks: EdgeUpdate = β-gated transformer conv over the LINE
+  graph with angle embeddings as edge features, then NodeUpdate = projection
+  of the updated bond states + transformer conv over the ATOM graph
+- each block: LayerNorm → residual `state + relu(out)`
+- segment-mean pooling over graphs, concat with 59 standardized global
+  scalars + 230-way space-group one-hot, feat_proj
+- per-target mean and log-variance heads
+
+Batches arrive as the packer's padded arenas (`data.batching.GraphBatch`),
+moved to the device once with `DeviceBatch.from_batch`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data.featurize import N_SG
+from ..ops.graph_attention import (TransformerConv, TransformerConvParams,
+                                   transformer_conv)
+from ..ops.segment import segment_mean
+
+LN_EPS = 1e-5  # torch.nn.LayerNorm default
+
+
+@dataclasses.dataclass(frozen=True)
+class AlignnConfig:
+    """The JAX package's `AlignnConfig`, field for field, so the config JSON
+    embedded in a checkpoint round-trips between the packages. The win64,
+    span and `scan_layers` fields are TPU kernel and compile choices; the
+    port carries them and does not read them."""
+
+    node_dim: int
+    edge_dim: int
+    angle_dim: int
+    global_dim: int          # scalar globals + space-group one-hot (59 + 230)
+    target_dim: int = 2
+    hidden: int = 256
+    layers: int = 4
+    heads: int = 4
+    dropout: float = 0.15
+    # 'table' / 'fused' / 'coo': on the card all three run the eproj kernel;
+    # on the CPU 'coo' runs the readable COO conv, the others the kernel's
+    # plain version
+    conv_impl: str = "table"
+    edge_win64: int = 0
+    lg_win64: int = 0
+    edge_src_win64: int = 0
+    lg_src_win64: int = 0
+    scan_layers: bool = False
+    # fused-kernel ladder: only the default rung (both True) has a CUDA
+    # kernel yet; the others raise on the card
+    attn_fused: bool = True
+    attn_eproj: bool = True
+    force_fused: bool = False
+    attn_span: bool = False
+    edge_span64: int = 0
+    lg_span64: int = 0
+
+    def __post_init__(self):
+        if self.heads <= 0:
+            raise ValueError("heads must be positive")
+        if self.target_dim <= 0:
+            raise ValueError("target_dim must be positive")
+        if self.hidden % self.heads != 0:
+            raise ValueError("hidden size must be divisible by number of heads")
+
+
+class MLP(nn.Module):
+    """relu(x·w0 + b0)·w1 + b1."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.b0 = nn.Parameter(torch.zeros(hidden))
+        self.b1 = nn.Parameter(torch.zeros(hidden))
+        self.w0 = nn.Parameter(torch.zeros(in_dim, hidden))
+        self.w1 = nn.Parameter(torch.zeros(hidden, hidden))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(x @ self.w0 + self.b0) @ self.w1 + self.b1
+
+
+class Dense(nn.Module):
+    """x·w + b."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.b = nn.Parameter(torch.zeros(out_dim))
+        self.w = nn.Parameter(torch.zeros(in_dim, out_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w + self.b
+
+
+class EdgeBlock(nn.Module):
+    def __init__(self, hidden: int):
+        super().__init__()
+        self.conv = TransformerConv(hidden, hidden, edge_dim=hidden)
+        self.ln_bias = nn.Parameter(torch.zeros(hidden))
+        self.ln_scale = nn.Parameter(torch.ones(hidden))
+
+
+class NodeBlock(nn.Module):
+    def __init__(self, hidden: int):
+        super().__init__()
+        self.conv = TransformerConv(hidden, hidden, edge_dim=hidden)
+        self.edge_proj_b = nn.Parameter(torch.zeros(hidden))
+        self.edge_proj_w = nn.Parameter(torch.zeros(hidden, hidden))
+        self.ln_bias = nn.Parameter(torch.zeros(hidden))
+        self.ln_scale = nn.Parameter(torch.ones(hidden))
+
+
+class Alignn(nn.Module):
+    """Parameters of one ensemble member; the forward is `alignn_apply`."""
+
+    def __init__(self, cfg: AlignnConfig):
+        super().__init__()
+        h = cfg.hidden
+        self.cfg = cfg
+        self.angle_enc = MLP(cfg.angle_dim, h)
+        self.edge_blocks = nn.ModuleList(EdgeBlock(h)
+                                         for _ in range(cfg.layers))
+        self.edge_enc = MLP(cfg.edge_dim, h)
+        self.feat_proj = Dense(h + cfg.global_dim, h)
+        self.logvar_head = Dense(h, cfg.target_dim)
+        self.mean_head = Dense(h, cfg.target_dim)
+        self.node_blocks = nn.ModuleList(NodeBlock(h)
+                                         for _ in range(cfg.layers))
+        self.node_enc = MLP(cfg.node_dim, h)
+
+    def forward(self, batch: "DeviceBatch"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return alignn_apply(self, batch)
+
+
+def leaf_names(cfg: AlignnConfig) -> List[str]:
+    """Parameter names in the JAX package's `tree_leaves` order of the
+    `init_alignn` pytree: dict keys sorted at every level, lists in order,
+    `TransformerConvParams` in field order. A checkpoint's `leaf_{i:05d}`
+    arrays follow this order."""
+    def mlp(p):
+        return [f"{p}.{k}" for k in ("b0", "b1", "w0", "w1")]
+
+    def dense(p):
+        return [f"{p}.b", f"{p}.w"]
+
+    def conv(p):
+        return [f"{p}.conv.{f}" for f in TransformerConvParams._fields]
+
+    names = mlp("angle_enc")
+    for i in range(cfg.layers):
+        p = f"edge_blocks.{i}"
+        names += conv(p) + [f"{p}.ln_bias", f"{p}.ln_scale"]
+    names += mlp("edge_enc") + dense("feat_proj") + dense("logvar_head") \
+        + dense("mean_head")
+    for i in range(cfg.layers):
+        p = f"node_blocks.{i}"
+        names += conv(p) + [f"{p}.edge_proj_b", f"{p}.edge_proj_w",
+                            f"{p}.ln_bias", f"{p}.ln_scale"]
+    return names + mlp("node_enc")
+
+
+def init_alignn(rng: np.random.Generator, cfg: AlignnConfig) -> Alignn:
+    """Random member from a numpy generator: every weight and bias
+    U(±1/√fan_in) as torch.nn.Linear initializes them, LayerNorm scale 1 and
+    bias 0. (The JAX package draws from jax.random; the streams differ.)"""
+    model = Alignn(cfg)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in params.items():
+            if name.rsplit(".", 1)[1].startswith("ln_"):
+                continue
+            weight = p if p.dim() == 2 else params[_weight_of(name)]
+            bound = 1.0 / math.sqrt(weight.shape[0])
+            p.copy_(torch.from_numpy(rng.uniform(
+                -bound, bound, tuple(p.shape)).astype(np.float32)))
+    return model
+
+
+def _weight_of(bias_name: str) -> str:
+    """The weight whose fan-in sizes a bias: b→w, b0→w0, b_query→w_query,
+    edge_proj_b→edge_proj_w."""
+    head, leaf = bias_name.rsplit(".", 1)
+    if leaf == "edge_proj_b":
+        return f"{head}.edge_proj_w"
+    return f"{head}.w{leaf[1:]}"
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    mean = x.mean(dim=-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + LN_EPS) * scale + bias
+
+
+@dataclasses.dataclass
+class DeviceBatch:
+    """The fields of a `GraphBatch` that the eval forward reads, as tensors
+    on one device: features f32, index arrays int64, CSR pointers int32."""
+
+    nodes: torch.Tensor
+    node_graph: torch.Tensor
+    edge_src: torch.Tensor
+    edge_dst: torch.Tensor
+    edge_attr: torch.Tensor
+    edge_mask: torch.Tensor
+    lg_src: torch.Tensor
+    lg_dst: torch.Tensor
+    lg_attr: torch.Tensor
+    lg_mask: torch.Tensor
+    globals_: torch.Tensor
+    sg_num: torch.Tensor
+    edge_row_ptr: torch.Tensor
+    lg_row_ptr: torch.Tensor
+    n_graphs: int
+
+    _FLOAT = ("nodes", "edge_attr", "edge_mask", "lg_attr", "lg_mask",
+              "globals_")
+    _INDEX = ("node_graph", "edge_src", "edge_dst", "lg_src", "lg_dst",
+              "sg_num")
+    _ROW_PTR = ("edge_row_ptr", "lg_row_ptr")
+
+    @classmethod
+    def from_batch(cls, batch, device) -> "DeviceBatch":
+        def put(name, dtype):
+            arr = np.ascontiguousarray(getattr(batch, name), dtype=dtype)
+            return torch.from_numpy(arr).to(device, non_blocking=True)
+
+        fields = {n: put(n, np.float32) for n in cls._FLOAT}
+        fields.update({n: put(n, np.int64) for n in cls._INDEX})
+        fields.update({n: put(n, np.int32) for n in cls._ROW_PTR})
+        return cls(**fields, n_graphs=int(np.asarray(batch.y).shape[0]))
+
+
+def _shared_trunk(model: Alignn, batch: DeviceBatch,
+                  tap: Optional[Callable[[str, torch.Tensor], None]] = None
+                  ) -> torch.Tensor:
+    """Encoders → interleaved LG/atom convs → pooling → feat_proj → [G, H].
+    `tap(name, tensor)` records intermediate activations."""
+    cfg = model.cfg
+    node_state = model.node_enc(batch.nodes)
+    edge_state = model.edge_enc(batch.edge_attr)
+    angle_emb = model.angle_enc(batch.lg_attr)
+    if tap is not None:
+        tap("node_enc", node_state)
+        tap("edge_enc", edge_state)
+        tap("angle_enc", angle_emb)
+
+    has_lg = batch.lg_mask.sum() > 0
+    has_edges = batch.edge_mask.sum() > 0
+
+    if cfg.conv_impl == "coo" and batch.nodes.device.type == "cpu":
+        def lg_conv(conv, state, feats):
+            return transformer_conv(conv.params(), state, batch.lg_src,
+                                    batch.lg_dst, feats, heads=cfg.heads,
+                                    edge_mask=batch.lg_mask)
+
+        def atom_conv(conv, state, feats):
+            return transformer_conv(conv.params(), state, batch.edge_src,
+                                    batch.edge_dst, feats, heads=cfg.heads,
+                                    edge_mask=batch.edge_mask)
+    else:
+        from ..ops.dense_attention import transformer_conv_table
+
+        def lg_conv(conv, state, feats):
+            return transformer_conv_table(
+                conv.params(), state, batch.lg_src, batch.lg_dst, feats,
+                batch.lg_row_ptr, heads=cfg.heads, edge_mask=batch.lg_mask,
+                attn_fused=cfg.attn_fused, attn_eproj=cfg.attn_eproj)
+
+        def atom_conv(conv, state, feats):
+            return transformer_conv_table(
+                conv.params(), state, batch.edge_src, batch.edge_dst, feats,
+                batch.edge_row_ptr, heads=cfg.heads,
+                edge_mask=batch.edge_mask, attn_fused=cfg.attn_fused,
+                attn_eproj=cfg.attn_eproj)
+
+    for li, (eb, nb) in enumerate(zip(model.edge_blocks, model.node_blocks)):
+        # EdgeUpdate: line-graph conv with angle features
+        out = lg_conv(eb.conv, edge_state, angle_emb).to(edge_state.dtype)
+        out = _layer_norm(out, eb.ln_scale, eb.ln_bias)
+        edge_state = torch.where(has_lg, edge_state + torch.relu(out),
+                                 edge_state)
+        # NodeUpdate: atom conv fed by projected bond states
+        edge_feat = edge_state @ nb.edge_proj_w + nb.edge_proj_b
+        out = atom_conv(nb.conv, node_state, edge_feat).to(node_state.dtype)
+        out = _layer_norm(out, nb.ln_scale, nb.ln_bias)
+        node_state = torch.where(has_edges, node_state + torch.relu(out),
+                                 node_state)
+        if tap is not None:
+            tap(f"layer{li}_edge", edge_state)
+            tap(f"layer{li}_node", node_state)
+
+    g = batch.n_graphs
+    pooled = segment_mean(node_state, batch.node_graph, g + 1)[:g]
+    # jax.nn.one_hot gives a zero row for sg_num 0 (index −1);
+    # torch.nn.functional.one_hot would raise, so build it directly
+    sg = batch.sg_num
+    valid = (sg >= 1) & (sg <= N_SG)
+    sg_one_hot = (torch.arange(1, N_SG + 1, device=sg.device)[None, :]
+                  == torch.where(valid, sg, 0)[:, None]).to(pooled.dtype)
+    feats = torch.cat([pooled, batch.globals_, sg_one_hot], dim=-1)
+    shared = torch.relu(model.feat_proj(feats))
+    if tap is not None:
+        tap("pooled", pooled)
+        tap("shared", shared)
+    return shared
+
+
+def alignn_apply(model: Alignn, batch: DeviceBatch
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval forward → (mean [G,T], logvar [G,T]) in transformed target space."""
+    shared = _shared_trunk(model, batch)
+    return model.mean_head(shared), model.logvar_head(shared)
+
+
+def alignn_activations(model: Alignn, batch: DeviceBatch
+                       ) -> Dict[str, torch.Tensor]:
+    """Eval forward recording every intermediate activation: {node_enc,
+    edge_enc, angle_enc, layer{i}_edge, layer{i}_node, pooled, shared, mean,
+    logvar}, the names `gnnep_tpu.models.alignn.alignn_activations` uses."""
+    acts: Dict[str, torch.Tensor] = {}
+    shared = _shared_trunk(model, batch, tap=acts.__setitem__)
+    acts["mean"] = model.mean_head(shared)
+    acts["logvar"] = model.logvar_head(shared)
+    return acts
