@@ -6,19 +6,30 @@
 Phases, each printing one line (a failure anywhere exits non-zero):
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
      TF32 off for matrix products and convolutions.
-  2. build: nvcc builds every kernel of the serving path from `csrc/`.
+  2. build: nvcc builds every kernel of the serving and training paths from
+     `csrc/` (one nvcc per source, all started together).
   3. kernel: each kernel against its plain PyTorch version on the card, on
-     small seeded edge cases and at the flagship conv shapes.
+     small seeded edge cases and at the flagship conv shapes: the eproj
+     forward (kernel 5), the eproj backward (kernel 6; dead rows must be
+     exact zeros) and the CSR segment-sum (kernel 7).
   4. serve: 256 synthetic MP-like graphs and a 5-member flagship ensemble
      (hidden 256, 4 layers, 4 heads, random weights from a seed) written to
      disk, then `gnnep_tpu_torch.cli.predict` in float32 and bfloat16; the
      launch counts show every conv went through the kernel, and member 0's
      means on the card match the CPU plain forward.
-  5. times: CUDA events, warm-up first. A kernel's (and its plain
+  5. train: `gnnep_tpu_torch.cli.train --conv-impl fused` on the same 256
+     graphs at flagship width, 2 members in float32 and 1 in bfloat16; every
+     step's loss is finite, kernels 6 and 7 ran 2·layers times per optimizer
+     step (the trainer reports its steps), and the written f32 ensemble
+     serves through `cli.predict`.
+  6. check: one train step on the card against the CPU plain step from the
+     same parameters and batch, dropout and jitter off.
+  7. times: CUDA events, warm-up first. A kernel's (and its plain
      version's) device time per launch is the median of 30 chains of 10
      back-to-back launches; its wall time per call, host work included, and
-     the forward's wall time per batch are medians of 30 single calls. A
-     profiler pass splits the forward's device time by kernel.
+     the forward's and the train step's wall times are medians of 30 single
+     calls. Profiler passes split the forward's and the train step's device
+     time by kernel.
 
 The next-to-last line is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -126,16 +138,31 @@ def phase_device():
 
 
 # --------------------------------------------------------------- phase 2
+KERNELS = ("attn_eproj_fwd", "attn_eproj_bwd", "csr_segment_sum")
+# the TPU kernel each one replaces
+REPLACES = {"attn_eproj_fwd": "gnnep_tpu/ops/pallas/csr_attention.py:983",
+            "attn_eproj_bwd": "gnnep_tpu/ops/pallas/csr_attention.py:1065",
+            "csr_segment_sum": "gnnep_tpu/ops/pallas/csr_attention.py:1533"}
+
+
 def phase_build():
     from gnnep_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
-    build.build(["attn_eproj_fwd"])
-    say("build", kernels="attn_eproj_fwd",
+    build.build(list(KERNELS))
+    say("build", kernels=",".join(KERNELS),
         seconds=f"{time.perf_counter() - t0:.1f}")
     for name, log in build.build_logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+            # the mangled kernel name carries its length, then its template
+            # arguments: ...26attn_eproj_bwd_attn_kernelI13__nv_bfloat16Li4EE
+            m = re.search(r"\d+([a-z_]+_kernel)I(\w*?)EEv", line)
+            if m:
+                args = (m.group(2).replace("13__nv_bfloat16", "bf16")
+                        .replace("Li", ",").replace("E", ""))
+                entry = f" {m.group(1)}<{args}>"
+            elif "registers" in line or "spill" in line:
+                print(f"  {name}{entry}: {line.strip()}", flush=True)
 
 
 # --------------------------------------------------------------- phase 3
@@ -271,6 +298,165 @@ def phase_kernel(dev, batch):
     return flagship
 
 
+def bwd_inputs(case, g_seed=0):
+    """Kernel 6's inputs for an eproj case: the forward's inputs, a seeded
+    f32 cotangent g and the forward kernel's max and denom."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+    fwd = (case["q"], case["kv"], case["ea"], case["w_edge"],
+           case["scale_t"], case["mask2"])
+    _, mx, den = ep.attention_eproj_cuda(*fwd, case["row_ptr"], case["dst"],
+                                         heads=case["heads"])
+    gen = torch.Generator(device=case["q"].device).manual_seed(g_seed)
+    g = torch.randn(case["q"].shape, generator=gen, device=case["q"].device)
+    return fwd + (case["row_ptr"], case["dst"], g, mx, den)
+
+
+def check_bwd_case(name, case, tol):
+    """Kernel 6 against its plain version on the card: dq on the real rows,
+    dkv and dea on the live edges and dW_e in full, each within `tol` of
+    the plain tensor's largest magnitude; dead edges' rows and the dummy
+    row's dq must be exact zeros. Returns the largest absolute difference
+    and the largest share of its limit."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+    args = bwd_inputs(case)
+    kern = ep.attention_eproj_bwd_cuda(*args, heads=case["heads"])
+    torch.cuda.synchronize()
+    plain = ep.attention_eproj_bwd_plain(*args, heads=case["heads"])
+    n = case["q"].shape[0]
+    live = (case["mask2"] > 0) & (case["dst"] != n - 1)
+    errs, share = {}, 0.0
+    for what, a, b in zip(("dq", "dkv", "dea", "dw"), kern, plain):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: kernel {what} has non-finite "
+                                 "values")
+        if what == "dq":
+            if a[-1].any():
+                raise AssertionError(f"{name}: dq of the dummy row is not "
+                                     "zero")
+            a, b = a[:-1], b[:-1]
+        elif what in ("dkv", "dea"):
+            if a[~live].any():
+                raise AssertionError(f"{name}: {what} of dead edges is not "
+                                     "zero")
+            a, b = a[live], b[live]
+        scale = b.abs().max().item() if b.numel() else 0.0
+        err = (a - b).abs().max().item() if a.numel() else 0.0
+        if err > tol * scale:
+            raise AssertionError(f"{name}: kernel {what} differs from the "
+                                 f"plain version by {err:.3e} (tol {tol} x "
+                                 f"{scale:.3e})")
+        errs[what] = err
+        if scale > 0:
+            share = max(share, err / (tol * scale))
+    say("kernel", kernel="attn_eproj_bwd", case=name, tol_rel_to_max=tol,
+        **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
+        share_of_limit=f"{share:.3f}")
+    return max(errs.values())
+
+
+def phase_kernel_bwd(dev, batch):
+    """Kernel 6 on small seeded edge cases and at the flagship conv shapes
+    of a packed training batch."""
+    import torch
+    rng = np.random.default_rng(SEED + 10)
+    flagship = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        degs = rng.integers(0, 7, 40)
+        check_bwd_case(f"small_{tag}_ch8", eproj_case(
+            rng, n=40, heads=2, hidden=16, fe=16, degs=degs, dtype=dtype,
+            device=dev, interior_pad=0.2, dead_rows=(3,), scale=True), tol)
+        degs = rng.integers(10, 60, 24)
+        check_bwd_case(f"long_rows_{tag}_ch64", eproj_case(
+            rng, n=24, heads=4, hidden=256, fe=256, degs=degs, dtype=dtype,
+            device=dev, interior_pad=0.1, dead_rows=(5,), scale=True), tol)
+        degs = rng.integers(1, 20, 16)
+        check_bwd_case(f"ch96_{tag}", eproj_case(
+            rng, n=16, heads=2, hidden=192, fe=32, degs=degs, dtype=dtype,
+            device=dev, interior_pad=0.1, scale=True), tol)
+        for which in ("lg", "atom"):
+            tagl = "float32" if dtype == torch.float32 else "bfloat16"
+            case = batch_case(rng, batch, which, hidden=256, dtype=dtype,
+                              device=dev)
+            err = check_bwd_case(f"{which}_conv_{tagl}", case, tol)
+            flagship[(which, tagl)] = (case, err)
+    return flagship
+
+
+def segsum_case(rng, batch, which, *, width, dtype, device):
+    """Kernel 7's inputs at one conv's kv-gather backward of a packed batch:
+    the cotangent of kv [E, 2H] (zero on masked edges, as the eproj
+    backward leaves it), the source-sorted order and starts."""
+    import torch
+    if which == "lg":
+        src, order, starts, mask = (batch.lg_src, batch.lg_src_order,
+                                    batch.lg_src_starts, batch.lg_mask)
+    else:
+        src, order, starts, mask = (batch.edge_src, batch.edge_src_order,
+                                    batch.edge_src_starts, batch.edge_mask)
+
+    def t_(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    live = (np.asarray(mask) > 0)[:, None]
+    values = rng.normal(size=(src.shape[0], width)) * live
+    return dict(values=t_(values, dtype),
+                order=t_(order, torch.int32), starts=t_(starts, torch.int32),
+                src=t_(src, torch.int64))
+
+
+def check_segsum_case(name, case, rtol, atol):
+    import torch
+    from gnnep_tpu_torch.ops.cuda import segment_sum as ss
+    args = (case["values"], case["order"], case["starts"])
+    kern = ss.csr_segment_sum_cuda(*args)
+    torch.cuda.synchronize()
+    plain = ss.csr_segment_sum_plain(*args)
+    err = (kern - plain).abs().max().item() if kern.numel() else 0.0
+    if not torch.isfinite(kern).all() or not torch.allclose(
+            kern, plain, rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: segment-sum kernel differs from the "
+                             f"plain version by {err:.3e} (rtol {rtol}, "
+                             f"atol {atol})")
+    if not torch.equal(ss.csr_segment_sum_cuda(*args), kern):
+        raise AssertionError(f"{name}: segment-sum kernel is not "
+                             "deterministic")
+    say("kernel", kernel="csr_segment_sum", case=name, rtol=rtol, atol=atol,
+        max_abs_err=f"{err:.3e}")
+    return err
+
+
+def phase_kernel_segsum(dev, batch):
+    """Kernel 7 on small seeded cases (empty segments, odd widths) and at
+    the flagship kv-gather backward shapes."""
+    import torch
+    rng = np.random.default_rng(SEED + 20)
+    flagship = {}
+    for dtype, tol in ((torch.float32, (1e-5, 1e-5)),
+                       (torch.bfloat16, (1e-4, 1e-4))):
+        tag = "float32" if dtype == torch.float32 else "bfloat16"
+        for width in (6, 16, 512):
+            idx = rng.integers(0, 299, 3000)
+            idx[-100:] = 299
+            order = np.argsort(idx, kind="stable")
+            starts = np.searchsorted(idx[order], np.arange(300))
+            case = dict(
+                values=torch.from_numpy(rng.normal(size=(3000, width))).to(
+                    dev, dtype),
+                order=torch.from_numpy(order).to(dev, torch.int32),
+                starts=torch.from_numpy(starts).to(dev, torch.int32))
+            check_segsum_case(f"small_w{width}_{tag}", case, *tol)
+        for which in ("lg", "atom"):
+            case = segsum_case(rng, batch, which, width=512, dtype=dtype,
+                               device=dev)
+            err = check_segsum_case(f"{which}_conv_{tag}", case, *tol)
+            flagship[(which, tag)] = (case, err)
+    return flagship
+
+
 # --------------------------------------------------------------- phase 4
 def write_fixture(root: Path):
     """256 synthetic graphs and a 5-member flagship ensemble on disk."""
@@ -376,6 +562,251 @@ def phase_serve(root: Path, data: Path, ens: Path, cfg, batches, dev):
 
 
 # --------------------------------------------------------------- phase 5
+TRAIN_MEMBERS, TRAIN_EPOCHS, TRAIN_SCAN = 2, 3, 2
+
+
+def train_argv(data: Path, out: Path, dtype: str, members: int,
+               epochs: int) -> list:
+    """The CLI request of a training run: flagship width (the CLI's
+    defaults: hidden 256, 4 layers, 4 heads) on the fixture's graphs."""
+    return ["--data-dir", str(data), "--save-dir", str(out),
+            "--conv-impl", "fused", "--ensemble-size", str(members),
+            "--epochs", str(epochs), "--batch-size", str(BATCH),
+            "--compute-dtype", dtype, "--scan-steps", str(TRAIN_SCAN),
+            "--seed", str(SEED), "--quiet"]
+
+
+def training_setup(data: Path, root: Path):
+    """The trainer's own setup and packed training batches for the f32
+    request: the standardized store, transformer and budget that
+    `cli.train` derives."""
+    from gnnep_tpu_torch.cli import train as cli
+    from gnnep_tpu_torch.data.batching import epoch_batches
+    from gnnep_tpu_torch.train.ensemble import prepare
+    args = cli.build_parser().parse_args(train_argv(
+        data, root / "unused", "float32", TRAIN_MEMBERS, TRAIN_EPOCHS))
+    setup = prepare(cli.config_from_args(args))
+    return setup, epoch_batches(setup.store, setup.train_idx, setup.budget,
+                                shuffle=False)
+
+
+def run_counted(fn):
+    """Run `fn` with every kernel's launch count set to 0 just before and
+    read just after → (fn's result, {kernel: launches}, per-step losses).
+    The train step is wrapped to keep each step's loss on the device (no
+    extra synchronisation); the wrapper is removed afterwards."""
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+    from gnnep_tpu_torch.ops.cuda import segment_sum as ss
+    from gnnep_tpu_torch.train import loop
+    losses = []
+    orig = loop.TrainStep.__call__
+
+    def recording(self, *a, **k):
+        m = orig(self, *a, **k)
+        losses.append(m.loss_sum.detach())
+        return m
+
+    loop.TrainStep.__call__ = recording
+    try:
+        ep.launches = ep.bwd_launches = ss.launches = 0
+        out = fn()
+        counts = {"attn_eproj_fwd": ep.launches,
+                  "attn_eproj_bwd": ep.bwd_launches,
+                  "csr_segment_sum": ss.launches}
+    finally:
+        loop.TrainStep.__call__ = orig
+    return out, counts, losses
+
+
+def phase_train(root: Path, data: Path, layers: int):
+    """Trains through the CLI in f32 and bf16, then serves the f32
+    ensemble; returns each run's launches and steps."""
+    import torch
+    from gnnep_tpu_torch.cli import predict as cli_predict
+    from gnnep_tpu_torch.cli import train as cli_train
+    runs = {}
+    for dtype, members, epochs in (("float32", TRAIN_MEMBERS, TRAIN_EPOCHS),
+                                   ("bfloat16", 1, 1)):
+        out = root / f"trained_{dtype}"
+        t0 = time.perf_counter()
+        with open(root / f"train_{dtype}.txt", "w") as log, \
+                contextlib.redirect_stdout(log):
+            summary, counts, losses = run_counted(lambda: cli_train.main(
+                train_argv(data, out, dtype, members, epochs)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        steps = summary["optimizer_steps"]
+        loss = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
+        if steps <= 0 or len(loss) != steps or not np.isfinite(loss).all():
+            raise AssertionError(f"{dtype}: {steps} optimizer steps "
+                                 f"reported, {len(loss)} losses recorded, "
+                                 f"finite: {np.isfinite(loss).all()}")
+        want = 2 * layers * steps
+        for name in ("attn_eproj_bwd", "csr_segment_sum"):
+            if counts[name] != want:
+                raise AssertionError(
+                    f"{dtype}: {name} launched {counts[name]} times, "
+                    f"expected 2 convs x {layers} layers x {steps} steps = "
+                    f"{want}")
+        if counts["attn_eproj_fwd"] < want:
+            raise AssertionError(f"{dtype}: attn_eproj_fwd launched "
+                                 f"{counts['attn_eproj_fwd']} times, fewer "
+                                 f"than the {want} of the train steps")
+        for name in ("model_0.npz", "scaler_state.npz", "conformal.json",
+                     "train_summary.json"):
+            if not (out / name).exists():
+                raise AssertionError(f"{dtype}: {name} not written")
+        runs[dtype] = dict(counts=counts, steps=steps, seconds=secs,
+                           summary=summary)
+        say("train", dtype=dtype, members=members, epochs=epochs,
+            optimizer_steps=steps, kernel_launches=json.dumps(counts),
+            loss_sum_first=f"{loss[0]:.4f}", loss_sum_last=f"{loss[-1]:.4f}",
+            test_mae=f"{summary['test_stats']['overall']['mae']:.3f}",
+            coverage=f"{summary['conformal_coverage']['overall']:.3f}",
+            cli_seconds=f"{secs:.2f}")
+    # the written f32 ensemble serves through the predict CLI
+    pred = root / "pred_trained.json"
+    with open(root / "cli_trained.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        cli_predict.main(["--mode", "random", "--num-samples", str(BATCH),
+                          "--batch-size", str(BATCH), "--data-dir",
+                          str(data), "--ensemble-dir",
+                          str(root / "trained_float32"),
+                          "--output-json", str(pred)])
+    preds = json.loads(pred.read_text())["predictions"]
+    mu = np.asarray([p["mu"] for p in preds], np.float64)
+    sigma = np.asarray([p["sigma"] for p in preds], np.float64)
+    if len(preds) != BATCH or not (np.isfinite(mu).all()
+                                   and np.isfinite(sigma).all()
+                                   and (sigma > 0).all()):
+        raise AssertionError("the trained ensemble served non-finite or "
+                             "missing predictions")
+    say("train", served=len(preds), members=TRAIN_MEMBERS,
+        mu_mean=f"{mu.mean():.4f}", sigma_mean=f"{sigma.mean():.4f}")
+    return runs
+
+
+# --------------------------------------------------------------- phase 6
+# the step's two LR groups differ, so that an update taken at the other
+# group's LR shows
+CHECK_LR_MEAN, CHECK_LR_SIGMA = 1e-3, 5e-4
+
+
+def _leaf_err(a, b, floor: float):
+    """(max |a − b|, max |b|, allowed): the leaf's largest difference, its
+    largest reference magnitude, and 5e-3 of that magnitude plus `floor`."""
+    err = (a - b).abs().max().item() if b.numel() else 0.0
+    scale = b.abs().max().item() if b.numel() else 0.0
+    return err, scale, 5e-3 * scale + floor
+
+
+def phase_check(setup, batches, dev):
+    """One train step on the card against the CPU plain step from the same
+    parameters and batch, dropout and jitter off, at LRs 1e-3 / 5e-4:
+    - StepMetrics and every gradient element at rtol 5e-3 / atol 1e-4 (the
+      JAX package's model gradient tolerance), and each leaf's gradient and
+      Adam first moment within 5e-3 of that leaf's largest magnitude (plus
+      1e-5 and 1e-6: the noise of a theoretically zero gradient);
+    - each leaf's update p_new − p_old within 1e-2 of that leaf's largest
+      update (about the LR), leaving out only the elements whose clipped
+      gradient is about zero, where the two sides' difference could flip
+      Adam's first step or move it by a tenth of the limit; at most 10% of
+      them. A skipped
+      update, a flipped sign or the other group's LR is off by at least
+      half an update."""
+    import torch
+    from gnnep_tpu_torch.models.alignn import DeviceBatch, init_alignn
+    from gnnep_tpu_torch.train.loop import (ADAM_B1, ADAM_EPS, TrainHyper,
+                                            make_train_step)
+    from gnnep_tpu_torch.utils.synth import flagship_config
+    rtol, atol = 5e-3, 1e-4
+    store = setup.store
+    cfg = flagship_config(node_dim=store.node_dim, edge_dim=store.edge_dim,
+                          angle_dim=store.angle_dim,
+                          global_dim=store.global_scalar_dim + 230,
+                          dropout=0.0)
+    hyper = TrainHyper(feature_jitter_std=0.0)
+    t = setup.transformer
+    steps, metrics, before = {}, {}, {}
+    for where in ("cuda", "cpu"):
+        model = init_alignn(np.random.default_rng(SEED + 99), cfg)
+        step = make_train_step(model, hyper, t.means, t.stds,
+                               dev if where == "cuda" else "cpu")
+        before[where] = [p.detach().cpu().clone() for p in step.params]
+        m = step(DeviceBatch.from_batch(batches[0], step.params[0].device),
+                 None, CHECK_LR_MEAN, CHECK_LR_SIGMA)
+        metrics[where] = [float(x) for x in m]
+        steps[where] = step
+    if not all(torch.equal(a, b) for a, b in zip(before["cuda"],
+                                                 before["cpu"])):
+        raise AssertionError("train step check: the two models start from "
+                             "different parameters")
+    worst_metric = 0.0
+    for name, a, b in zip(("loss_sum", "n_graphs", "abs_err_sum",
+                           "sq_err_sum", "n_elements", "logvar_sum",
+                           "max_var"), metrics["cuda"], metrics["cpu"]):
+        if not np.isfinite(a) or abs(a - b) > atol + rtol * abs(b):
+            raise AssertionError(f"train step {name}: card {a} vs CPU {b}")
+        worst_metric = max(worst_metric, abs(a - b))
+    names = [n for n, _ in steps["cpu"].model.named_parameters()]
+    card, ref = steps["cuda"], steps["cpu"]
+    # per kind: (leaf, err, leaf scale, err / limit) of the leaf nearest
+    # its limit
+    worst = {k: ("", 0.0, 0.0, 0.0) for k in ("grad", "mu", "update")}
+    left_out = left_sign = total = 0
+    for i, name in enumerate(names):
+        gc = card.params[i].grad.detach().cpu().float()
+        gr = ref.params[i].grad.detach().float()
+        if not torch.allclose(gc, gr, rtol=rtol, atol=atol):
+            raise AssertionError(f"train step grad of {name}: card vs CPU "
+                                 f"differ by {(gc - gr).abs().max():.3e}")
+        checks = {
+            "grad": _leaf_err(gc, gr, 1e-5),
+            "mu": _leaf_err(card.state.mu[i].detach().cpu(),
+                            ref.state.mu[i].detach(), 1e-6)}
+        uc = card.params[i].detach().cpu().float() - before["cuda"][i].float()
+        ur = ref.params[i].detach().float() - before["cpu"][i].float()
+        # the clipped gradients Adam took in, from its first moments. Its
+        # first step is g / (|g| + eps): an element is left out where the
+        # two sides' difference d could flip its sign (|g| <= 4d) or move it
+        # by more than a tenth of the limit (d·eps / g² > 1e-3); one of
+        # exactly zero on both sides leaves only the decay
+        kc = card.state.mu[i].detach().cpu() / (1.0 - ADAM_B1)
+        kr = ref.state.mu[i].detach() / (1.0 - ADAM_B1)
+        d = (kc - kr).abs()
+        sign_open = kr.abs() <= 4.0 * d
+        moved = d * ADAM_EPS > 1e-3 * kr * kr
+        keep = ~(sign_open | moved) | ((kr == 0) & (kc == 0))
+        left_out += int((~keep).sum())
+        left_sign += int((sign_open & ~keep).sum())
+        total += keep.numel()
+        err = (uc - ur)[keep].abs().max().item() if keep.any() else 0.0
+        scale = ur.abs().max().item()
+        checks["update"] = (err, scale, 1e-2 * scale)
+        for kind, (e, leaf_scale, lim) in checks.items():
+            if e > lim:
+                raise AssertionError(
+                    f"train step {kind} of {name}: card vs CPU differ by "
+                    f"{e:.3e}, above {lim:.3e} (leaf scale {leaf_scale:.3e})")
+            share = e / lim if lim > 0 else 0.0
+            if share >= worst[kind][3]:
+                worst[kind] = (name, e, leaf_scale, share)
+    if left_out > 0.1 * total:
+        raise AssertionError(f"train step update: {left_out} of {total} "
+                             "elements have a gradient of about zero")
+    say("check", what="train_step_card_vs_cpu", rtol=rtol, atol=atol,
+        lr_mean=CHECK_LR_MEAN, lr_sigma=CHECK_LR_SIGMA, leaves=len(names),
+        loss_sum=f"{metrics['cuda'][0]:.6f}",
+        max_abs_err_metric=f"{worst_metric:.3e}",
+        update_elements_left_out=f"{left_out}/{total}",
+        of_them_sign_open=left_sign)
+    for kind, (name, e, leaf_scale, share) in worst.items():
+        say("check", kind=kind, nearest_limit_leaf=name,
+            max_abs_err=f"{e:.3e}", leaf_scale=f"{leaf_scale:.3e}",
+            share_of_limit=f"{share:.3f}")
+
+
+# --------------------------------------------------------------- phase 7
 def eproj_bound_ms(case):
     """Least time for the kernel's work on this card → (ms, 'bytes' or
     'operations'): the larger of its bytes over the memory rate and its
@@ -408,32 +839,17 @@ def phase_times(flagship, batches, ens, dev):
     from gnnep_tpu_torch.train.artifacts import load_member
     from gnnep_tpu_torch.train.loop import cast_model, make_forward
 
-    cases = []
-    for (which, dtype), (case, err) in flagship.items():
-        args = (case["q"], case["kv"], case["ea"], case["w_edge"],
-                case["scale_t"], case["mask2"])
+    def fwd_args(c):
+        return (c["q"], c["kv"], c["ea"], c["w_edge"], c["scale_t"],
+                c["mask2"])
 
-        def kernel():
-            ep.attention_eproj_cuda(*args, case["row_ptr"], case["dst"],
-                                    heads=case["heads"])
-
-        kern_ms = device_ms(kernel)
-        call_ms = median_ms(kernel)
-        plain_ms = device_ms(lambda: ep.attention_eproj_plain(
-            *args, case["dst"], heads=case["heads"]))
-        bound, bound_by = eproj_bound_ms(case)
-        rec = {"conv": which, "dtype": dtype, "n": int(case["q"].shape[0]),
-               "e": int(case["kv"].shape[0]),
-               "live_edges": int((case["mask2"] > 0).sum().item()),
-               "ms": kern_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-               "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err}
-        cases.append(rec)
-        say("times", kernel="attn_eproj_fwd", conv=which, dtype=dtype,
-            n=rec["n"], e=rec["e"], live_edges=rec["live_edges"],
-            ms=f"{kern_ms:.4f}", call_ms_with_host=f"{call_ms:.4f}",
-            bound_ms=f"{bound:.4f}", bound_by=bound_by,
-            plain_ms_no_yardstick=f"{plain_ms:.4f}",
-            library_ms="none (no single PyTorch call computes this function)")
+    cases = kernel_times(
+        "attn_eproj_fwd", flagship,
+        lambda c: ep.attention_eproj_cuda(*fwd_args(c), c["row_ptr"],
+                                          c["dst"], heads=c["heads"]),
+        lambda c: ep.attention_eproj_plain(*fwd_args(c), c["dst"],
+                                           heads=c["heads"]),
+        eproj_bound_ms)
     model = load_member(ens / "model_0.npz", dev)
     dbs = [DeviceBatch.from_batch(b, dev) for b in batches]
     real = [int(np.asarray(b.graph_mask).sum()) for b in batches]
@@ -450,16 +866,159 @@ def phase_times(flagship, batches, ens, dev):
         say("times", forward=dtype, ms_per_batch=f"{ms:.3f}",
             graphs_per_batch=f"{np.mean(real):.1f}",
             graphs_per_s=f"{np.mean(real) / ms * 1e3:.0f}")
-        profile_forward(lambda: [fwd(run, db) for db in dbs], dtype,
-                        len(dbs))
+        profile_run(lambda: [fwd(run, db) for db in dbs], "forward", dtype,
+                    len(dbs))
     return cases
 
 
-def profile_forward(run_all, dtype: str, n_batches: int) -> None:
-    """Device time by kernel over one pass of the batches, from
-    torch.profiler: the device's busy share of the traced wall time (the
-    tracer's own host cost inflates the wall time, so this share is a lower
-    bound) and the kernels that take the most of it."""
+def eproj_bwd_bound_ms(case):
+    """Least time for kernel 6's work → (ms, 'bytes' or 'operations'). Bytes:
+    the live edges' rows of kv, ea and scale_t, q, g, W_e, the stats, mask2
+    and row_ptr read once; dq, dkv, dea (every row) and dW_e written once.
+    Operations: the projection recompute, dea and dW_e (2·live·Fe·H each),
+    q·k, g·v, dq, dk, dv and de per live edge and channel, and the softmax
+    gradient's few per (edge, head)."""
+    q, ea, w = case["q"], case["ea"], case["w_edge"]
+    n, hidden = q.shape
+    fe = ea.shape[1]
+    heads = case["heads"]
+    e_total = case["kv"].shape[0]
+    item = q.element_size()
+    live = int(((case["mask2"] > 0) & (case["dst"] != n - 1)).sum().item())
+    nbytes = (item * (q.numel() + live * (2 * hidden + fe) + w.numel())
+              + 4 * (live * heads + case["mask2"].numel()
+                     + case["row_ptr"].numel())
+              + 4 * (n * hidden + 2 * n * heads)
+              + item * (n * hidden + e_total * (2 * hidden + fe))
+              + 4 * fe * hidden)
+    ops = 6 * live * fe * hidden + 12 * live * hidden + 10 * live * heads
+    dtype = "bfloat16" if item == 2 else "float32"
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def segsum_bound_ms(case):
+    """Least time for kernel 7's work: every row the result needs (those
+    before the dummy row's last segment, whose sum is unspecified) and its
+    order entry read once, the starts read once, the f32 output written
+    once; one f32 add per element read."""
+    v = case["values"]
+    width = v.shape[1]
+    n = case["starts"].shape[0]
+    rows = int(case["starts"][-1].item())
+    nbytes = (v.element_size() * rows * width + 4 * (rows + n)
+              + 4 * n * width)
+    ops = rows * width
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def kernel_times(name, flagship, run_kernel, run_plain, bound_fn,
+                 library=None):
+    """Device ms per launch, wall ms per call with host work, plain ms and
+    bound of one kernel at each flagship case; `library(case)`, where given,
+    is one PyTorch call computing the same function, timed beside it."""
+    cases = []
+    for (which, dtype), (case, err) in flagship.items():
+        kern_ms = device_ms(lambda: run_kernel(case))
+        call_ms = median_ms(lambda: run_kernel(case))
+        plain_ms = device_ms(lambda: run_plain(case))
+        lib_ms = device_ms(lambda: library(case)) if library else None
+        bound, bound_by = bound_fn(case)
+        cases.append({"conv": which, "dtype": dtype, "ms": kern_ms,
+                      "call_ms": call_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": lib_ms, "max_abs_err": err})
+        say("times", kernel=name, conv=which, dtype=dtype,
+            ms=f"{kern_ms:.4f}", call_ms_with_host=f"{call_ms:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=bound_by,
+            plain_ms_no_yardstick=f"{plain_ms:.4f}",
+            library_ms=("none (no single PyTorch call computes this "
+                        "function)" if lib_ms is None else f"{lib_ms:.4f}"))
+    return cases
+
+
+def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
+    """Kernels 6 and 7 at the flagship shapes, then the train step's wall
+    time per step (batches already on the card) and its profile."""
+    import torch
+    from gnnep_tpu_torch.models.alignn import DeviceBatch, init_alignn
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+    from gnnep_tpu_torch.ops.cuda import segment_sum as ss
+    from gnnep_tpu_torch.train.loop import TrainHyper, make_train_step
+    from gnnep_tpu_torch.utils.synth import flagship_config
+
+    bwd_args = {id(case): bwd_inputs(case) for case, _ in bwd_flag.values()}
+    bwd = kernel_times(
+        "attn_eproj_bwd", bwd_flag,
+        lambda c: ep.attention_eproj_bwd_cuda(*bwd_args[id(c)],
+                                              heads=c["heads"]),
+        lambda c: ep.attention_eproj_bwd_plain(*bwd_args[id(c)],
+                                               heads=c["heads"]),
+        eproj_bwd_bound_ms)
+
+    def seg_args(c):
+        return c["values"], c["order"], c["starts"]
+
+    def index_add(c):
+        # the whole kv-gather backward as one library call: scatter-add of
+        # the cotangent rows by source index
+        v = c["values"]
+        return torch.zeros((c["starts"].shape[0], v.shape[1]), dtype=v.dtype,
+                           device=v.device).index_add_(0, c["src"], v)
+
+    seg = kernel_times(
+        "csr_segment_sum", seg_flag,
+        lambda c: ss.csr_segment_sum_cuda(*seg_args(c)),
+        lambda c: ss.csr_segment_sum_plain(*seg_args(c)), segsum_bound_ms,
+        library=index_add)
+
+    store = setup.store
+    cfg = flagship_config(node_dim=store.node_dim, edge_dim=store.edge_dim,
+                          angle_dim=store.angle_dim,
+                          global_dim=store.global_scalar_dim + 230)
+    # full batches only: an epoch's short last batch is not the step that
+    # sets throughput
+    full = [b for b in batches
+            if int(np.asarray(b.graph_mask).sum()) == BATCH]
+    dbs = [DeviceBatch.from_batch(b, dev) for b in full]
+    real = [BATCH] * len(full)
+    steps = {}
+    for dtype in ("float32", "bfloat16"):
+        step = make_train_step(
+            init_alignn(np.random.default_rng(SEED + 7), cfg),
+            TrainHyper(compute_dtype=dtype), setup.transformer.means,
+            setup.transformer.stds, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        state = {"i": 0}
+
+        def one():
+            step(dbs[state["i"] % len(dbs)], gen, 1e-4, 1e-4)
+            state["i"] += 1
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = median_ms(one)
+        steps[dtype] = {"ms_per_step": ms,
+                        "graphs_per_s": float(np.mean(real) / ms * 1e3)}
+        say("times", train_step=dtype, ms_per_step=f"{ms:.3f}",
+            graphs_per_step=f"{np.mean(real):.1f}",
+            graphs_per_s=f"{np.mean(real) / ms * 1e3:.0f}",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}")
+        steps[dtype]["busy_share"] = profile_run(
+            lambda: [step(db, gen, 1e-4, 1e-4) for db in dbs], "train_step",
+            dtype, len(dbs))
+    return bwd, seg, steps
+
+
+def profile_run(run_all, label: str, dtype: str, n_calls: int) -> float:
+    """Device time by kernel over one pass of `run_all` (n_calls forwards
+    or train steps), from torch.profiler: the device's busy share of the
+    traced wall time (the tracer's own host cost inflates the wall time, so
+    this share is a lower bound; returned) and the kernels that take the
+    most of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run_all()
@@ -481,13 +1040,14 @@ def profile_forward(run_all, dtype: str, n_batches: int) -> None:
                      if str(getattr(e, "device_type", "")).endswith("CUDA")),
                     key=dev_us, reverse=True)
     busy_us = sum(dev_us(e) for e in events)
-    say("profile", forward=dtype, batches=n_batches,
-        device_ms_per_batch=f"{busy_us / 1e3 / n_batches:.3f}",
-        traced_wall_ms_per_batch=f"{wall_us / 1e3 / n_batches:.3f}",
+    say("profile", run=label, dtype=dtype, calls=n_calls,
+        device_ms_per_call=f"{busy_us / 1e3 / n_calls:.3f}",
+        traced_wall_ms_per_call=f"{wall_us / 1e3 / n_calls:.3f}",
         device_busy_share=f"{busy_us / wall_us:.3f}")
-    for e in events[:6]:
-        say("profile", kernel=repr(e.key[:60]), calls=e.count,
-            device_ms_per_batch=f"{dev_us(e) / 1e3 / n_batches:.3f}")
+    for e in events[:8]:
+        say("profile", run=label, kernel=repr(e.key[:60]), calls=e.count,
+            device_ms_per_call=f"{dev_us(e) / 1e3 / n_calls:.3f}")
+    return busy_us / wall_us
 
 
 def main() -> int:
@@ -506,23 +1066,48 @@ def main() -> int:
         root = Path(tmp)
         data, ens, cfg = write_fixture(root)
         batches = served_batches(serve_argv(root, data, ens, "float32"), dev)
+        setup, train_batches = training_setup(data, root)
         flagship = phase_kernel(dev, batches[0])
+        bwd_flag = phase_kernel_bwd(dev, train_batches[0])
+        seg_flag = phase_kernel_segsum(dev, train_batches[0])
         launches = phase_serve(root, data, ens, cfg, batches, dev)
+        runs = phase_train(root, data, cfg.layers)
+        phase_check(setup, train_batches, dev)
         cases = phase_times(flagship, batches, ens, dev)
-    head = next(c for c in cases
-                if c["conv"] == "lg" and c["dtype"] == "float32")
+        bwd_cases, seg_cases, step_times = phase_train_times(
+            bwd_flag, seg_flag, setup, train_batches, dev)
+
+    def head(recs):
+        return next(c for c in recs
+                    if c["conv"] == "lg" and c["dtype"] == "float32")
+
+    def record(name, recs, launches_f32, launches_bf16, path):
+        h = head(recs)
+        return {"name": name, "route": "cuda",
+                "source": f"gnnep_tpu_torch/csrc/{name}.cu",
+                "replaces": REPLACES[name],
+                # the f32 run's count; the bf16 run's, counted alone, beside
+                "launches": launches_f32, "launches_bfloat16": launches_bf16,
+                "launches_path": path, "max_abs_err": h["max_abs_err"],
+                "ms": h["ms"], "plain_ms": h["plain_ms"],
+                "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+                "library_ms": h.get("library_ms"), "cases": recs}
+
+    train = {d: r["counts"] for d, r in runs.items()}
+    kernels = [
+        record("attn_eproj_fwd", cases, launches["float32"],
+               launches["bfloat16"], "serve"),
+        record("attn_eproj_bwd", bwd_cases, train["float32"]["attn_eproj_bwd"],
+               train["bfloat16"]["attn_eproj_bwd"], "train"),
+        record("csr_segment_sum", seg_cases,
+               train["float32"]["csr_segment_sum"],
+               train["bfloat16"]["csr_segment_sum"], "train"),
+    ]
+    kernels[0]["launches_train"] = train["float32"]["attn_eproj_fwd"]
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "attn_eproj_fwd", "route": "cuda",
-        "source": "gnnep_tpu_torch/csrc/attn_eproj_fwd.cu",
-        "replaces": "gnnep_tpu/ops/pallas/csr_attention.py:983",
-        # the f32 run's count; the bf16 run's, counted alone, beside it
-        "launches": launches["float32"],
-        "launches_bfloat16": launches["bfloat16"],
-        "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None, "cases": cases}]}), flush=True)
+    print(json.dumps({"kernels": kernels, "train": {
+        d: {"optimizer_steps": r["steps"], "cli_seconds": r["seconds"],
+            **step_times[d]} for d, r in runs.items()}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -157,6 +157,21 @@ class GraphStore:
     def has_target(self) -> np.ndarray:
         return np.isfinite(self.y).all(axis=1)
 
+    def group_keys(self) -> List[str]:
+        """'{prototype}|{reduced_formula}' in store order (train.py:1303-1309)."""
+        keys = []
+        for g in range(self.n_graphs):
+            reduced = self.reduced_formulas[g] or self.formulas[g]
+            if reduced:
+                keys.append(f"{self.prototypes[g]}|{reduced}")
+            else:
+                keys.append(self.material_ids[g] or f"idx_{g}")
+        return keys
+
+    def subset(self, indices: Sequence[int]) -> "GraphStore":
+        idx = list(int(i) for i in indices)
+        return GraphStore.from_samples([self.sample(i) for i in idx])
+
     def sample(self, g: int) -> GraphSample:
         n0, n1 = self.node_off[g], self.node_off[g + 1]
         e0, e1 = self.edge_off[g], self.edge_off[g + 1]

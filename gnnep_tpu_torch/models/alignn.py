@@ -1,4 +1,5 @@
-"""Heteroscedastic ALIGNN regressor as an `nn.Module` (eval forward).
+"""Heteroscedastic ALIGNN regressor as an `nn.Module` (eval and train
+forwards).
 
 Counterpart of `gnnep_tpu.models.alignn`, with the same architecture and
 parameter layout (weights `[in, out]`, as JAX stores them):
@@ -7,13 +8,16 @@ parameter layout (weights `[in, out]`, as JAX stores them):
 - L interleaved blocks: EdgeUpdate = β-gated transformer conv over the LINE
   graph with angle embeddings as edge features, then NodeUpdate = projection
   of the updated bond states + transformer conv over the ATOM graph
-- each block: LayerNorm → residual `state + relu(out)`
+- each block: LayerNorm → residual `state + dropout(relu(out))`
 - segment-mean pooling over graphs, concat with 59 standardized global
   scalars + 230-way space-group one-hot, feat_proj
 - per-target mean and log-variance heads
 
 Batches arrive as the packer's padded arenas (`data.batching.GraphBatch`),
-moved to the device once with `DeviceBatch.from_batch`.
+moved to the device once with `DeviceBatch.from_batch`. The train forward
+draws every dropout mask (block outputs, pooled features, the shared
+embedding, and α inside each conv) from one explicit `torch.Generator` on
+the batch's device; its streams differ from `jax.random`'s.
 """
 from __future__ import annotations
 
@@ -138,9 +142,10 @@ class Alignn(nn.Module):
                                          for _ in range(cfg.layers))
         self.node_enc = MLP(cfg.node_dim, h)
 
-    def forward(self, batch: "DeviceBatch"
+    def forward(self, batch: "DeviceBatch", *, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return alignn_apply(self, batch)
+        return alignn_apply(self, batch, train=train, generator=generator)
 
 
 def leaf_names(cfg: AlignnConfig) -> List[str]:
@@ -203,10 +208,22 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + LN_EPS) * scale + bias
 
 
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """`where(bernoulli(1−rate), x / (1−rate), 0)`, as the JAX package's
+    `_dropout`; identity without a generator or at rate 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 @dataclasses.dataclass
 class DeviceBatch:
-    """The fields of a `GraphBatch` that the eval forward reads, as tensors
-    on one device: features f32, index arrays int64, CSR pointers int32."""
+    """The fields of a `GraphBatch` that the forwards and the loss read, as
+    tensors on one device: features, targets and masks f32, index arrays
+    int64, CSR pointers and the source-sorted CSR index int32."""
 
     nodes: torch.Tensor
     node_graph: torch.Tensor
@@ -222,13 +239,22 @@ class DeviceBatch:
     sg_num: torch.Tensor
     edge_row_ptr: torch.Tensor
     lg_row_ptr: torch.Tensor
+    edge_src_order: torch.Tensor
+    edge_src_starts: torch.Tensor
+    lg_src_order: torch.Tensor
+    lg_src_starts: torch.Tensor
+    y: torch.Tensor
+    y_mask: torch.Tensor
+    weight: torch.Tensor
+    graph_mask: torch.Tensor
     n_graphs: int
 
     _FLOAT = ("nodes", "edge_attr", "edge_mask", "lg_attr", "lg_mask",
-              "globals_")
+              "globals_", "y", "y_mask", "weight", "graph_mask")
     _INDEX = ("node_graph", "edge_src", "edge_dst", "lg_src", "lg_dst",
               "sg_num")
-    _ROW_PTR = ("edge_row_ptr", "lg_row_ptr")
+    _INT32 = ("edge_row_ptr", "lg_row_ptr", "edge_src_order",
+              "edge_src_starts", "lg_src_order", "lg_src_starts")
 
     @classmethod
     def from_batch(cls, batch, device) -> "DeviceBatch":
@@ -238,16 +264,22 @@ class DeviceBatch:
 
         fields = {n: put(n, np.float32) for n in cls._FLOAT}
         fields.update({n: put(n, np.int64) for n in cls._INDEX})
-        fields.update({n: put(n, np.int32) for n in cls._ROW_PTR})
+        fields.update({n: put(n, np.int32) for n in cls._INT32})
         return cls(**fields, n_graphs=int(np.asarray(batch.y).shape[0]))
 
 
 def _shared_trunk(model: Alignn, batch: DeviceBatch,
-                  tap: Optional[Callable[[str, torch.Tensor], None]] = None
+                  tap: Optional[Callable[[str, torch.Tensor], None]] = None,
+                  *, train: bool = False,
+                  generator: Optional[torch.Generator] = None
                   ) -> torch.Tensor:
     """Encoders → interleaved LG/atom convs → pooling → feat_proj → [G, H].
-    `tap(name, tensor)` records intermediate activations."""
+    `tap(name, tensor)` records intermediate activations. `train` with a
+    `generator` applies dropout at `cfg.dropout` where the JAX package
+    does."""
     cfg = model.cfg
+    drop = cfg.dropout if train else 0.0
+    gen = generator if train else None
     node_state = model.node_enc(batch.nodes)
     edge_state = model.edge_enc(batch.edge_attr)
     angle_emb = model.angle_enc(batch.lg_attr)
@@ -259,7 +291,10 @@ def _shared_trunk(model: Alignn, batch: DeviceBatch,
     has_lg = batch.lg_mask.sum() > 0
     has_edges = batch.edge_mask.sum() > 0
 
-    if cfg.conv_impl == "coo" and batch.nodes.device.type == "cpu":
+    # training always takes the kernel path (its plain versions on the CPU):
+    # 'coo' is only the readable eval reference
+    if (cfg.conv_impl == "coo" and batch.nodes.device.type == "cpu"
+            and not train):
         def lg_conv(conv, state, feats):
             return transformer_conv(conv.params(), state, batch.lg_src,
                                     batch.lg_dst, feats, heads=cfg.heads,
@@ -275,28 +310,33 @@ def _shared_trunk(model: Alignn, batch: DeviceBatch,
         def lg_conv(conv, state, feats):
             return transformer_conv_table(
                 conv.params(), state, batch.lg_src, batch.lg_dst, feats,
-                batch.lg_row_ptr, heads=cfg.heads, edge_mask=batch.lg_mask,
-                attn_fused=cfg.attn_fused, attn_eproj=cfg.attn_eproj)
+                batch.lg_row_ptr, batch.lg_src_order, batch.lg_src_starts,
+                heads=cfg.heads, edge_mask=batch.lg_mask,
+                attn_fused=cfg.attn_fused, attn_eproj=cfg.attn_eproj,
+                dropout_rate=drop, generator=gen)
 
         def atom_conv(conv, state, feats):
             return transformer_conv_table(
                 conv.params(), state, batch.edge_src, batch.edge_dst, feats,
-                batch.edge_row_ptr, heads=cfg.heads,
+                batch.edge_row_ptr, batch.edge_src_order,
+                batch.edge_src_starts, heads=cfg.heads,
                 edge_mask=batch.edge_mask, attn_fused=cfg.attn_fused,
-                attn_eproj=cfg.attn_eproj)
+                attn_eproj=cfg.attn_eproj, dropout_rate=drop, generator=gen)
 
     for li, (eb, nb) in enumerate(zip(model.edge_blocks, model.node_blocks)):
         # EdgeUpdate: line-graph conv with angle features
         out = lg_conv(eb.conv, edge_state, angle_emb).to(edge_state.dtype)
         out = _layer_norm(out, eb.ln_scale, eb.ln_bias)
-        edge_state = torch.where(has_lg, edge_state + torch.relu(out),
-                                 edge_state)
+        edge_state = torch.where(
+            has_lg, edge_state + _dropout(torch.relu(out), drop, gen),
+            edge_state)
         # NodeUpdate: atom conv fed by projected bond states
         edge_feat = edge_state @ nb.edge_proj_w + nb.edge_proj_b
         out = atom_conv(nb.conv, node_state, edge_feat).to(node_state.dtype)
         out = _layer_norm(out, nb.ln_scale, nb.ln_bias)
-        node_state = torch.where(has_edges, node_state + torch.relu(out),
-                                 node_state)
+        node_state = torch.where(
+            has_edges, node_state + _dropout(torch.relu(out), drop, gen),
+            node_state)
         if tap is not None:
             tap(f"layer{li}_edge", edge_state)
             tap(f"layer{li}_node", node_state)
@@ -309,18 +349,21 @@ def _shared_trunk(model: Alignn, batch: DeviceBatch,
     valid = (sg >= 1) & (sg <= N_SG)
     sg_one_hot = (torch.arange(1, N_SG + 1, device=sg.device)[None, :]
                   == torch.where(valid, sg, 0)[:, None]).to(pooled.dtype)
-    feats = torch.cat([pooled, batch.globals_, sg_one_hot], dim=-1)
-    shared = torch.relu(model.feat_proj(feats))
+    feats = _dropout(torch.cat([pooled, batch.globals_, sg_one_hot], dim=-1),
+                     drop, gen)
+    shared = _dropout(torch.relu(model.feat_proj(feats)), drop, gen)
     if tap is not None:
         tap("pooled", pooled)
         tap("shared", shared)
     return shared
 
 
-def alignn_apply(model: Alignn, batch: DeviceBatch
+def alignn_apply(model: Alignn, batch: DeviceBatch, *, train: bool = False,
+                 generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval forward → (mean [G,T], logvar [G,T]) in transformed target space."""
-    shared = _shared_trunk(model, batch)
+    """Forward → (mean [G,T], logvar [G,T]) in transformed target space;
+    eval unless `train` (dropout from `generator`)."""
+    shared = _shared_trunk(model, batch, train=train, generator=generator)
     return model.mean_head(shared), model.logvar_head(shared)
 
 

@@ -7,7 +7,8 @@ an ensemble written by either package loads in the other:
   order of the parameter pytree (`models.alignn.leaf_names`), weights
   `[in, out]`, plus `config_json`;
 - `scaler_state.npz`: the feature scaler's arrays, `log_means`/`log_stds`
-  and `meta_json`.
+  and `meta_json`;
+- `conformal.json`: the conformal quantiles and the affine debias.
 """
 from __future__ import annotations
 
@@ -109,6 +110,28 @@ def load_scaler_state(path: str | Path) -> Tuple[FeatureScaler,
             transformer = LogTransformer.from_state_dict(
                 {"means": data["log_means"], "stds": data["log_stds"]})
     return scaler, transformer, meta
+
+
+def save_conformal(path: str | Path, conf: Dict,
+                   affine_a: np.ndarray, affine_b: np.ndarray) -> None:
+    Path(path).write_text(json.dumps({
+        "q": np.asarray(conf["q"]).tolist(),
+        "method": conf["method"],
+        "alpha": conf["alpha"],
+        "affine_a": np.asarray(affine_a).tolist(),
+        "affine_b": np.asarray(affine_b).tolist(),
+    }, indent=2))
+
+
+def load_conformal(path: str | Path) -> Dict:
+    raw = json.loads(Path(path).read_text())
+    return {
+        "q": np.asarray(raw["q"], dtype=np.float64),
+        "method": raw["method"],
+        "alpha": float(raw["alpha"]),
+        "affine_a": np.asarray(raw["affine_a"], dtype=np.float64),
+        "affine_b": np.asarray(raw["affine_b"], dtype=np.float64),
+    }
 
 
 def member_paths(save_dir: str | Path) -> List[Path]:

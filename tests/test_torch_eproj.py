@@ -198,12 +198,16 @@ def test_card_refuses_what_the_kernel_does_not_take(cuda):
             torch.from_numpy(c["row_ptr"]).to(cuda),
             torch.from_numpy(c["dst"]).to(cuda, torch.int64), heads=2)
     conv = TransformerConv(16, 16, edge_dim=16).to(cuda)
+    n_e = len(c["dst"])
+    src_starts = torch.zeros(len(c["row_ptr"]) - 1, dtype=torch.int32,
+                             device=cuda)
     for fused, eproj in ((False, True), (True, False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer_conv_table(
-                conv.params(), q, torch.zeros(len(c["dst"]), dtype=torch.long,
+                conv.params(), q, torch.zeros(n_e, dtype=torch.long,
                                               device=cuda),
                 torch.from_numpy(c["dst"]).to(cuda, torch.long),
                 torch.from_numpy(c["ea"]).to(cuda),
-                torch.from_numpy(c["row_ptr"]).to(cuda), heads=2,
-                attn_fused=fused, attn_eproj=eproj)
+                torch.from_numpy(c["row_ptr"]).to(cuda),
+                torch.arange(n_e, dtype=torch.int32, device=cuda), src_starts,
+                heads=2, attn_fused=fused, attn_eproj=eproj)

@@ -44,7 +44,9 @@ def test_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert "gnnep_tpu_torch.cli.predict" in mods
+    assert {"gnnep_tpu_torch.cli.predict", "gnnep_tpu_torch.cli.train",
+            "gnnep_tpu_torch.train.member",
+            "gnnep_tpu_torch.ops.cuda.segment_sum"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -64,10 +66,16 @@ def test_no_jax_or_reference_import_in_source(path):
 
 
 def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    import numpy as np
+
     from gnnep_tpu_torch.cli import predict as cli
+    from gnnep_tpu_torch.cli import train as cli_train
     from gnnep_tpu_torch.infer.predict import Ensemble
+    from gnnep_tpu_torch.models.alignn import init_alignn
     from gnnep_tpu_torch.train.artifacts import load_member
+    from gnnep_tpu_torch.train.loop import TrainHyper, make_train_step
     from gnnep_tpu_torch.utils.device import resolve_device
+    from gnnep_tpu_torch.utils.synth import flagship_config
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -78,6 +86,13 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
         load_member(tmp_path / "model_0.npz")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--ensemble-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(["--data-dir", str(tmp_path), "--save-dir",
+                        str(tmp_path / "out")])
+    model = init_alignn(np.random.default_rng(0),
+                        flagship_config(hidden=8, heads=2, layers=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(model, TrainHyper(), np.zeros(2), np.ones(2))
     assert resolve_device("cpu").type == "cpu"
 
 
