@@ -9,27 +9,37 @@ Phases, each printing one line (a failure anywhere exits non-zero):
   2. build: nvcc builds every kernel of the serving and training paths from
      `csrc/` (one nvcc per source, all started together).
   3. kernel: each kernel against its plain PyTorch version on the card, on
-     small seeded edge cases and at the flagship conv shapes: the eproj
-     forward (kernel 5), the eproj backward (kernel 6; dead rows must be
-     exact zeros) and the CSR segment-sum (kernel 7).
+     small seeded edge cases and at the flagship conv shapes, f32 and bf16:
+     the eproj forward (kernel 5) and backward (kernel 6), the CSR
+     segment-sum (kernel 7, permuted and identity order), the kv+e
+     attention forward (kernel 3) and backward (kernel 4), and the
+     external-logits softmax-aggregate forward (kernel 1) and backward
+     (kernel 2). Dead rows of every backward must be exact zeros.
   4. serve: 256 synthetic MP-like graphs and a 5-member flagship ensemble
      (hidden 256, 4 layers, 4 heads, random weights from a seed) written to
      disk, then `gnnep_tpu_torch.cli.predict` in float32 and bfloat16; the
      launch counts show every conv went through the kernel, and member 0's
-     means on the card match the CPU plain forward.
+     means on the card match the CPU plain forward. The same for a
+     2-member ensemble on each other rung (`conv_impl='fused'` with
+     `attn_eproj=False`: kernel 3; with `attn_fused=False`: kernel 1), whose
+     convs never reach kernel 5.
   5. train: `gnnep_tpu_torch.cli.train --conv-impl fused` on the same 256
      graphs at flagship width, 2 members in float32 and 1 in bfloat16; every
      step's loss is finite, kernels 6 and 7 ran 2·layers times per optimizer
      step (the trainer reports its steps), and the written f32 ensemble
-     serves through `cli.predict`.
+     serves through `cli.predict`. Then one member for one epoch in float32
+     with `--no-attn-eproj` (kernels 4 and 7, 2·layers each per step) and
+     with `--no-attn-fused` (kernel 2 2·layers, kernel 7 4·layers: the kv
+     and the q gathers), the forward kernel 2·layers per train and eval
+     forward, kernels 5 and 6 never.
   6. check: one train step on the card against the CPU plain step from the
-     same parameters and batch, dropout and jitter off.
+     same parameters and batch, dropout and jitter off, on each rung.
   7. times: CUDA events, warm-up first. A kernel's (and its plain
      version's) device time per launch is the median of 30 chains of 10
      back-to-back launches; its wall time per call, host work included, and
-     the forward's and the train step's wall times are medians of 30 single
-     calls. Profiler passes split the forward's and the train step's device
-     time by kernel.
+     the forward's and the train step's wall times (on each rung) are
+     medians of 30 single calls. Profiler passes split the forward's and
+     the train step's device time by kernel.
 
 The next-to-last line is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -38,6 +48,8 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import importlib
 import json
 import re
 import subprocess
@@ -49,6 +61,17 @@ from pathlib import Path
 import numpy as np
 
 N_GRAPHS, BATCH, MEMBERS, SEED = 256, 64, 5, 0
+NEG = -1e30
+# the two other ladder rungs: the config fields each sets, its CLI flag, its
+# forward and backward kernels, and kernel 7's launches per conv and step
+RUNGS = {
+    "kv+e": dict(cfg={"attn_eproj": False}, flag="--no-attn-eproj",
+                 fwd="attn_fwd", bwd="attn_bwd", gathers=1),
+    "logits": dict(cfg={"attn_fused": False}, flag="--no-attn-fused",
+                   fwd="softmax_aggregate_fwd", bwd="softmax_aggregate_bwd",
+                   gathers=2),
+}
+RUNG_MEMBERS = 2
 REPS, WARMUP = 30, 5
 # kernel timing: launches per timed chain, and the card-side spin (about
 # 25 ms at the H100's clock) that covers the host's enqueuing of a chain
@@ -138,11 +161,41 @@ def phase_device():
 
 
 # --------------------------------------------------------------- phase 2
-KERNELS = ("attn_eproj_fwd", "attn_eproj_bwd", "csr_segment_sum")
+KERNELS = ("attn_eproj_fwd", "attn_eproj_bwd", "csr_segment_sum",
+           "attn_fwd", "attn_bwd", "softmax_aggregate_fwd",
+           "softmax_aggregate_bwd")
 # the TPU kernel each one replaces
 REPLACES = {"attn_eproj_fwd": "gnnep_tpu/ops/pallas/csr_attention.py:983",
             "attn_eproj_bwd": "gnnep_tpu/ops/pallas/csr_attention.py:1065",
-            "csr_segment_sum": "gnnep_tpu/ops/pallas/csr_attention.py:1533"}
+            "csr_segment_sum": "gnnep_tpu/ops/pallas/csr_attention.py:1533",
+            "attn_fwd": "gnnep_tpu/ops/pallas/csr_attention.py:535",
+            "attn_bwd": "gnnep_tpu/ops/pallas/csr_attention.py:613",
+            "softmax_aggregate_fwd": "gnnep_tpu/ops/pallas/csr_attention.py:38",
+            "softmax_aggregate_bwd":
+                "gnnep_tpu/ops/pallas/csr_attention.py:189"}
+# each kernel's launch count: (module of gnnep_tpu_torch.ops.cuda, attribute)
+COUNTERS = {"attn_eproj_fwd": ("attention_eproj", "launches"),
+            "attn_eproj_bwd": ("attention_eproj", "bwd_launches"),
+            "csr_segment_sum": ("segment_sum", "launches"),
+            "attn_fwd": ("attention", "launches"),
+            "attn_bwd": ("attention", "bwd_launches"),
+            "softmax_aggregate_fwd": ("aggregate", "launches"),
+            "softmax_aggregate_bwd": ("aggregate", "bwd_launches")}
+
+
+def _counter_module(name: str):
+    return importlib.import_module(
+        f"gnnep_tpu_torch.ops.cuda.{COUNTERS[name][0]}")
+
+
+def reset_counts() -> None:
+    for name, (_, attr) in COUNTERS.items():
+        setattr(_counter_module(name), attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(_counter_module(name), attr)
+            for name, (_, attr) in COUNTERS.items()}
 
 
 def phase_build():
@@ -454,6 +507,237 @@ def phase_kernel_segsum(dev, batch):
                                device=dev)
             err = check_segsum_case(f"{which}_conv_{tag}", case, *tol)
             flagship[(which, tag)] = (case, err)
+        # the identity order: the q gather's backward on the external-logits
+        # rung, the line-graph conv's cotangent of q_dst [E, H] summed over
+        # its own CSR rows
+        case = qgather_case(rng, batch, width=256, dtype=dtype, device=dev)
+        err = check_segsum_case(f"lg_identity_order_{tag}", case, *tol)
+        flagship[("lg_identity", tag)] = (case, err)
+    return flagship
+
+
+def qgather_case(rng, batch, *, width, dtype, device):
+    """Kernel 7's inputs at the line-graph conv's q-gather backward: the
+    cotangent of q_dst (zero on masked edges), no order (the identity) and
+    the CSR row starts; `src` is dst, for the library call."""
+    import torch
+    live = (np.asarray(batch.lg_mask) > 0)[:, None]
+    values = rng.normal(size=(batch.lg_dst.shape[0], width)) * live
+    return dict(values=torch.from_numpy(values).to(device, dtype), order=None,
+                starts=torch.from_numpy(np.ascontiguousarray(
+                    batch.lg_row_ptr[:-1])).to(device, torch.int32),
+                src=torch.from_numpy(np.asarray(batch.lg_dst)).to(
+                    device, torch.int64))
+
+
+# ------------------------------------------- phase 3, kernels 3, 4, 1 and 2
+def attn_inputs(case):
+    """Kernel 3's inputs from an eproj case: k and v are kv's two halves."""
+    hidden = case["q"].shape[1]
+    return dict(q=case["q"], k=case["kv"][:, :hidden].contiguous(),
+                v=case["kv"][:, hidden:].contiguous(),
+                scale_t=case["scale_t"], mask2=case["mask2"],
+                row_ptr=case["row_ptr"], dst=case["dst"],
+                heads=case["heads"])
+
+
+def agg_inputs(rng, case):
+    """Kernel 1's inputs from an eproj case: f32 [heads, E] logits from the
+    rng (spread as q·k/√c of unit rows, about 2), written as −1e30 where
+    mask2 is 0 as the conv writes them; v is kv's second half."""
+    import torch
+    heads, e_total = case["scale_t"].shape
+    logits = torch.from_numpy(rng.normal(size=(heads, e_total)).astype(
+        np.float32) * 2.0).to(case["q"].device)
+    logits = torch.where(case["mask2"][None, :] > 0, logits,
+                         torch.full_like(logits, NEG)).contiguous()
+    return dict(logits_t=logits, scale_t=case["scale_t"],
+                v=case["kv"][:, case["q"].shape[1]:].contiguous(),
+                row_ptr=case["row_ptr"], dst=case["dst"], mask2=case["mask2"],
+                heads=heads, n=case["q"].shape[0])
+
+
+def attn_fwd_args(c):
+    return (c["q"], c["k"], c["v"], c["scale_t"], c["mask2"])
+
+
+def agg_fwd_args(c):
+    return (c["logits_t"], c["scale_t"], c["v"], c["row_ptr"])
+
+
+def run_fwd(kernel, c):
+    """(kernel result, plain result) of kernel 3 or 1, each (out, max,
+    denom)."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import aggregate as ag
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    if kernel == "attn_fwd":
+        args = attn_fwd_args(c)
+        kern = at.attention_cuda(*args, c["row_ptr"], heads=c["heads"])
+        torch.cuda.synchronize()
+        return kern, at.attention_plain(*args, c["dst"], heads=c["heads"])
+    args = agg_fwd_args(c)
+    kern = ag.aggregate_cuda(*args, heads=c["heads"])
+    torch.cuda.synchronize()
+    return kern, ag.aggregate_plain(*args, c["dst"], heads=c["heads"])
+
+
+def rung_bwd_inputs(kernel, c, g_seed=0):
+    """Kernel 4's or 2's inputs: the forward's, a seeded f32 cotangent g and
+    the forward kernel's max and denom."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import aggregate as ag
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    n, hidden = c["q"].shape if "q" in c else (c["n"], c["v"].shape[1])
+    gen = torch.Generator(device=c["v"].device).manual_seed(g_seed)
+    g = torch.randn((n, hidden), generator=gen, device=c["v"].device)
+    if kernel == "attn_bwd":
+        _, mx, den = at.attention_cuda(*attn_fwd_args(c), c["row_ptr"],
+                                       heads=c["heads"])
+        return attn_fwd_args(c) + (c["row_ptr"], g, mx, den)
+    _, mx, den = ag.aggregate_cuda(*agg_fwd_args(c), heads=c["heads"])
+    return agg_fwd_args(c) + (g, mx, den)
+
+
+def run_bwd_plain(kernel, c, args):
+    """The plain version of kernel 4 (dq, dk, dv) or 2 (dl_t, dv) on the
+    kernel's arguments, with dst."""
+    from gnnep_tpu_torch.ops.cuda import aggregate as ag
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    if kernel == "attn_bwd":
+        return at.attention_bwd_plain(*args[:6], c["dst"], *args[6:],
+                                      heads=c["heads"])
+    return ag.aggregate_bwd_plain(*args[:4], c["dst"], *args[4:],
+                                  heads=c["heads"])
+
+
+def run_bwd(kernel, c, args):
+    """(kernel result, plain result) of kernel 4 or 2."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import aggregate as ag
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    cuda = (at.attention_bwd_cuda if kernel == "attn_bwd"
+            else ag.aggregate_bwd_cuda)
+    kern = cuda(*args, heads=c["heads"])
+    torch.cuda.synchronize()
+    return kern, run_bwd_plain(kernel, c, args)
+
+
+def _within(kernel, name, what, a, b, tol):
+    """|a − b| within `tol` × the plain tensor's largest magnitude (no
+    floor) → (max abs error, share of the limit)."""
+    import torch
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{kernel} {name}: kernel {what} has non-finite "
+                             "values")
+    scale = b.abs().max().item() if b.numel() else 0.0
+    err = (a - b).abs().max().item() if a.numel() else 0.0
+    if err > tol * scale:
+        raise AssertionError(f"{kernel} {name}: kernel {what} differs from "
+                             f"the plain version by {err:.3e} (tol {tol} x "
+                             f"{scale:.3e})")
+    return err, (err / (tol * scale) if scale > 0 else 0.0)
+
+
+def check_rung_fwd(kernel, name, c, tol):
+    """Kernel 3 or 1 against its plain version on the real rows (all but the
+    dummy row n−1): out and denom within `tol` of the plain tensor's largest
+    magnitude; max so on rows with a live edge, and exactly −1e30 on the
+    others (all-masked and empty rows). Returns out's largest absolute
+    difference."""
+    kern, plain = run_fwd(kernel, c)
+    errs, share = {}, 0.0
+    for what, a, b in zip(("out", "max", "denom"), kern, plain):
+        a, b = a[:-1].float(), b[:-1].float()
+        if what == "max":
+            dead = b <= 0.5 * NEG
+            if not (a[dead] == NEG).all():
+                raise AssertionError(f"{kernel} {name}: max of a row without "
+                                     "a live edge is not -1e30")
+            a, b = a[~dead], b[~dead]
+        errs[what], sh = _within(kernel, name, what, a, b, tol)
+        share = max(share, sh)
+    say("kernel", kernel=kernel, case=name, tol_rel_to_max=tol,
+        **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
+        share_of_limit=f"{share:.3f}")
+    return errs["out"]
+
+
+def check_rung_bwd(kernel, name, c, tol):
+    """Kernel 4 or 2 against its plain version, each output within `tol` of
+    the plain tensor's largest magnitude; the rows of dead edges (masked,
+    or the dummy row's) and the dummy row's dq must be exact zeros. Returns
+    the largest absolute difference."""
+    kern, plain = run_bwd(kernel, c, rung_bwd_inputs(kernel, c))
+    import torch
+    n = c["q"].shape[0] if "q" in c else c["n"]
+    live = (c["mask2"] > 0) & (c["dst"] != n - 1)
+    if kernel == "attn_bwd":
+        real = torch.arange(n, device=live.device) < n - 1
+        rows = {"dq": (kern[0], plain[0], real),
+                "dk": (kern[1], plain[1], live),
+                "dv": (kern[2], plain[2], live)}
+    else:
+        rows = {"dl_t": (kern[0].t(), plain[0].t(), live),
+                "dv": (kern[1], plain[1], live)}
+    errs, share = {}, 0.0
+    for what, (a, b, keep) in rows.items():
+        a, b = a.float(), b.float()
+        if a[~keep].any():
+            raise AssertionError(f"{kernel} {name}: {what} of dead rows is "
+                                 "not zero")
+        errs[what], sh = _within(kernel, name, what, a[keep], b[keep], tol)
+        share = max(share, sh)
+    say("kernel", kernel=kernel, case=name, tol_rel_to_max=tol,
+        **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
+        share_of_limit=f"{share:.3f}")
+    return max(errs.values())
+
+
+def phase_kernel_rungs(dev, batch):
+    """Kernels 3, 4, 1 and 2 on small seeded edge cases (head widths 8, 64
+    and 96; interior padding, an all-masked row, empty rows, the dummy
+    row's tail, a dropout scale) and at the flagship conv shapes of a
+    packed training batch, f32 and bf16 → {kernel: {(conv, dtype): (case,
+    err)}}."""
+    import torch
+    rng = np.random.default_rng(SEED + 30)
+    flagship = {k: {} for k in ("attn_fwd", "attn_bwd",
+                                "softmax_aggregate_fwd",
+                                "softmax_aggregate_bwd")}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        tag = "float32" if dtype == torch.float32 else "bfloat16"
+        small = [
+            ("small_ch8", eproj_case(
+                rng, n=40, heads=2, hidden=16, fe=16,
+                degs=rng.integers(0, 7, 40), dtype=dtype, device=dev,
+                interior_pad=0.2, dead_rows=(3,), scale=True)),
+            ("long_rows_ch64", eproj_case(
+                rng, n=24, heads=4, hidden=256, fe=16,
+                degs=rng.integers(10, 60, 24), dtype=dtype, device=dev,
+                interior_pad=0.1, dead_rows=(5,), scale=True)),
+            ("ch96", eproj_case(
+                rng, n=16, heads=2, hidden=192, fe=16,
+                degs=rng.integers(1, 20, 16), dtype=dtype, device=dev,
+                interior_pad=0.1, scale=True))]
+        for which in ("lg", "atom"):
+            small.append((f"{which}_conv", batch_case(
+                rng, batch, which, hidden=256, dtype=dtype, device=dev)))
+        for name, case in small:
+            a, g = attn_inputs(case), agg_inputs(rng, case)
+            err = {"attn_fwd": check_rung_fwd("attn_fwd", f"{name}_{tag}", a,
+                                              tol),
+                   "attn_bwd": check_rung_bwd("attn_bwd", f"{name}_{tag}", a,
+                                              tol),
+                   "softmax_aggregate_fwd": check_rung_fwd(
+                       "softmax_aggregate_fwd", f"{name}_{tag}", g, tol),
+                   "softmax_aggregate_bwd": check_rung_bwd(
+                       "softmax_aggregate_bwd", f"{name}_{tag}", g, tol)}
+            if name.endswith("_conv"):
+                which = name[:-len("_conv")]
+                for k, e in err.items():
+                    c = a if k.startswith("attn") else g
+                    flagship[k][(which, tag)] = (c, e)
     return flagship
 
 
@@ -484,12 +768,30 @@ def write_fixture(root: Path):
     return data, ens, cfg
 
 
-def serve_argv(root: Path, data: Path, ens: Path, dtype: str) -> list:
+def write_rung_ensemble(root: Path, ens: Path, cfg, rung: str) -> Path:
+    """A RUNG_MEMBERS-member flagship ensemble whose members' configs select
+    `rung` (with `conv_impl='fused'`), beside the default one and with its
+    scaler state."""
+    from gnnep_tpu_torch.models.alignn import init_alignn
+    from gnnep_tpu_torch.train.artifacts import save_member
+    out = root / f"ensemble_{rung}"
+    out.mkdir()
+    rcfg = dataclasses.replace(cfg, conv_impl="fused", **RUNGS[rung]["cfg"])
+    for i in range(RUNG_MEMBERS):
+        save_member(out / f"model_{i}.npz",
+                    init_alignn(np.random.default_rng(SEED + 1 + i), rcfg))
+    (out / "scaler_state.npz").write_bytes(
+        (ens / "scaler_state.npz").read_bytes())
+    return out
+
+
+def serve_argv(root: Path, data: Path, ens: Path, dtype: str,
+               tag: str = "") -> list:
     """The CLI request each serving run makes."""
     return ["--mode", "random", "--num-samples", str(N_GRAPHS),
             "--batch-size", str(BATCH), "--data-dir", str(data),
             "--ensemble-dir", str(ens), "--compute-dtype", dtype,
-            "--output-json", str(root / f"pred_{dtype}.json")]
+            "--output-json", str(root / f"pred{tag}_{dtype}.json")]
 
 
 def served_batches(argv: list, dev):
@@ -503,34 +805,41 @@ def served_batches(argv: list, dev):
     return pack_batches(store, idx, args.batch_size)[1]
 
 
-def phase_serve(root: Path, data: Path, ens: Path, cfg, batches, dev):
-    """Serves the request in f32 and bf16; returns each run's launches."""
+def phase_serve(root: Path, data: Path, ens: Path, cfg, batches, dev, *,
+                members: int = MEMBERS, kernel: str = "attn_eproj_fwd",
+                tag: str = ""):
+    """Serves the request in f32 and bf16 from the ensemble in `ens`, whose
+    members' convs run the forward kernel `kernel`, and no other kernel;
+    returns each run's launches of it."""
     import torch
     from gnnep_tpu_torch.cli import predict as cli
-    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
     from gnnep_tpu_torch.train.artifacts import load_member
     from gnnep_tpu_torch.train.loop import make_forward
     from gnnep_tpu_torch.models.alignn import DeviceBatch
 
-    expected = MEMBERS * len(batches) * 2 * cfg.layers
+    expected = members * len(batches) * 2 * cfg.layers
     launches = {}
     for dtype in ("float32", "bfloat16"):
-        argv = serve_argv(root, data, ens, dtype)
+        argv = serve_argv(root, data, ens, dtype, tag)
         out = Path(argv[-1])
         t0 = time.perf_counter()
         # the CLI's per-material table goes to a file, not this output
-        with open(root / f"cli_{dtype}.txt", "w") as log, \
+        with open(root / f"cli{tag}_{dtype}.txt", "w") as log, \
                 contextlib.redirect_stdout(log):
-            ep.launches = 0
+            reset_counts()
             cli.main(argv)
-            grew = ep.launches
+            counts = read_counts()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        grew = counts.pop(kernel)
         if grew != expected:
             raise AssertionError(
-                f"{dtype}: eproj kernel launched {grew} times, expected "
-                f"{MEMBERS} members x {len(batches)} batches x 2 convs x "
+                f"{dtype}: {kernel} launched {grew} times, expected "
+                f"{members} members x {len(batches)} batches x 2 convs x "
                 f"{cfg.layers} layers = {expected}")
+        if any(counts.values()):
+            raise AssertionError(f"{dtype}: serving with {kernel} also "
+                                 f"launched {counts}")
         preds = json.loads(out.read_text())["predictions"]
         mu = np.asarray([p["mu"] for p in preds], np.float64)
         sigma = np.asarray([p["sigma"] for p in preds], np.float64)
@@ -540,10 +849,10 @@ def phase_serve(root: Path, data: Path, ens: Path, cfg, batches, dev):
             raise AssertionError(f"{dtype}: {len(preds)} predictions, or "
                                  "non-finite mu/sigma, or sigma <= 0")
         launches[dtype] = grew
-        say("serve", dtype=dtype, graphs=len(preds), batches=len(batches),
-            members=MEMBERS, kernel_launches=grew,
-            cli_seconds=f"{secs:.2f}", mu_mean=f"{mu.mean():.4f}",
-            sigma_mean=f"{sigma.mean():.4f}")
+        say("serve", rung=tag.strip("_") or "eproj", dtype=dtype,
+            graphs=len(preds), batches=len(batches), members=members,
+            kernel=kernel, kernel_launches=grew, cli_seconds=f"{secs:.2f}",
+            mu_mean=f"{mu.mean():.4f}", sigma_mean=f"{sigma.mean():.4f}")
     # member 0, first batch: the card's f32 means against the CPU's plain
     # forward of the same checkpoint
     fwd = make_forward()
@@ -556,7 +865,8 @@ def phase_serve(root: Path, data: Path, ens: Path, cfg, batches, dev):
         raise AssertionError("member 0 means on the card differ from the CPU "
                              "plain forward by "
                              f"{(g_mean - c_mean).abs().max().item():.3e}")
-    say("serve", check="member0_batch0_gpu_vs_cpu", rtol=1e-3, atol=1e-4,
+    say("serve", rung=tag.strip("_") or "eproj",
+        check="member0_batch0_gpu_vs_cpu", rtol=1e-3, atol=1e-4,
         max_abs_err=f"{(g_mean - c_mean).abs().max().item():.3e}")
     return launches
 
@@ -592,30 +902,36 @@ def training_setup(data: Path, root: Path):
 
 def run_counted(fn):
     """Run `fn` with every kernel's launch count set to 0 just before and
-    read just after → (fn's result, {kernel: launches}, per-step losses).
-    The train step is wrapped to keep each step's loss on the device (no
-    extra synchronisation); the wrapper is removed afterwards."""
-    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
-    from gnnep_tpu_torch.ops.cuda import segment_sum as ss
+    read just after → (fn's result, {kernel: launches}, per-step losses,
+    {"train": forwards, "eval": forwards}). The train step is wrapped to
+    keep each step's loss on the device (no extra synchronisation), and the
+    model's trunk to count its train and eval forwards; both wrappers are
+    removed afterwards."""
+    from gnnep_tpu_torch.models import alignn as pm
     from gnnep_tpu_torch.train import loop
     losses = []
-    orig = loop.TrainStep.__call__
+    forwards = {"train": 0, "eval": 0}
+    orig, orig_trunk = loop.TrainStep.__call__, pm._shared_trunk
 
     def recording(self, *a, **k):
         m = orig(self, *a, **k)
         losses.append(m.loss_sum.detach())
         return m
 
+    def counting_trunk(*a, **k):
+        forwards["train" if k.get("train") else "eval"] += 1
+        return orig_trunk(*a, **k)
+
     loop.TrainStep.__call__ = recording
+    pm._shared_trunk = counting_trunk
     try:
-        ep.launches = ep.bwd_launches = ss.launches = 0
+        reset_counts()
         out = fn()
-        counts = {"attn_eproj_fwd": ep.launches,
-                  "attn_eproj_bwd": ep.bwd_launches,
-                  "csr_segment_sum": ss.launches}
+        counts = read_counts()
     finally:
         loop.TrainStep.__call__ = orig
-    return out, counts, losses
+        pm._shared_trunk = orig_trunk
+    return out, counts, losses, forwards
 
 
 def phase_train(root: Path, data: Path, layers: int):
@@ -631,8 +947,9 @@ def phase_train(root: Path, data: Path, layers: int):
         t0 = time.perf_counter()
         with open(root / f"train_{dtype}.txt", "w") as log, \
                 contextlib.redirect_stdout(log):
-            summary, counts, losses = run_counted(lambda: cli_train.main(
-                train_argv(data, out, dtype, members, epochs)))
+            summary, counts, losses, _ = run_counted(
+                lambda: cli_train.main(train_argv(data, out, dtype, members,
+                                                  epochs)))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         steps = summary["optimizer_steps"]
@@ -686,6 +1003,51 @@ def phase_train(root: Path, data: Path, layers: int):
     return runs
 
 
+def phase_train_rung(root: Path, data: Path, layers: int, rung: str):
+    """Trains one member for one epoch in f32 through the CLI on `rung`:
+    every loss finite; per optimizer step the rung's backward kernel
+    2·layers times and kernel 7 2·layers times per gather (kv, and q on the
+    external-logits rung); the rung's forward kernel 2·layers times per
+    train and eval forward (the trainer's steps and its validation,
+    calibration and test batches, counted apart); kernels 5 and 6 never."""
+    import torch
+    from gnnep_tpu_torch.cli import train as cli_train
+    spec = RUNGS[rung]
+    out = root / f"trained_{rung}"
+    t0 = time.perf_counter()
+    with open(root / f"train_{rung}.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        summary, counts, losses, forwards = run_counted(
+            lambda: cli_train.main(train_argv(data, out, "float32", 1, 1)
+                                   + [spec["flag"]]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = summary["optimizer_steps"]
+    loss = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
+    if steps <= 0 or len(loss) != steps or not np.isfinite(loss).all():
+        raise AssertionError(f"{rung}: {steps} optimizer steps reported, "
+                             f"{len(loss)} losses recorded, finite: "
+                             f"{np.isfinite(loss).all()}")
+    if forwards["train"] != steps:
+        raise AssertionError(f"{rung}: {forwards['train']} train forwards "
+                             f"for {steps} optimizer steps")
+    want = {spec["bwd"]: 2 * layers * steps,
+            "csr_segment_sum": 2 * spec["gathers"] * layers * steps,
+            spec["fwd"]: 2 * layers * (forwards["train"] + forwards["eval"])}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(
+                f"{rung}: {name} launched {n} times, expected "
+                f"{want.get(name, 0)} ({steps} steps, {forwards['eval']} "
+                f"eval forwards, {layers} layers)")
+    say("train", rung=rung, flag=spec["flag"], dtype="float32", members=1,
+        epochs=1, optimizer_steps=steps, eval_forwards=forwards["eval"],
+        kernel_launches=json.dumps(counts), loss_sum_first=f"{loss[0]:.4f}",
+        loss_sum_last=f"{loss[-1]:.4f}", cli_seconds=f"{secs:.2f}")
+    return dict(counts=counts, steps=steps, eval_forwards=forwards["eval"],
+                seconds=secs)
+
+
 # --------------------------------------------------------------- phase 6
 # the step's two LR groups differ, so that an update taken at the other
 # group's LR shows
@@ -700,9 +1062,11 @@ def _leaf_err(a, b, floor: float):
     return err, scale, 5e-3 * scale + floor
 
 
-def phase_check(setup, batches, dev):
+def phase_check(setup, batches, dev, rung: str = "eproj"):
     """One train step on the card against the CPU plain step from the same
-    parameters and batch, dropout and jitter off, at LRs 1e-3 / 5e-4:
+    parameters and batch, dropout and jitter off, at LRs 1e-3 / 5e-4, on
+    `rung` (the card step launches that rung's forward and backward kernel
+    2·layers times each):
     - StepMetrics and every gradient element at rtol 5e-3 / atol 1e-4 (the
       JAX package's model gradient tolerance), and each leaf's gradient and
       Adam first moment within 5e-3 of that leaf's largest magnitude (plus
@@ -721,10 +1085,12 @@ def phase_check(setup, batches, dev):
     from gnnep_tpu_torch.utils.synth import flagship_config
     rtol, atol = 5e-3, 1e-4
     store = setup.store
+    spec = RUNGS.get(rung, dict(cfg={}, fwd="attn_eproj_fwd",
+                                bwd="attn_eproj_bwd"))
     cfg = flagship_config(node_dim=store.node_dim, edge_dim=store.edge_dim,
                           angle_dim=store.angle_dim,
                           global_dim=store.global_scalar_dim + 230,
-                          dropout=0.0)
+                          dropout=0.0, **spec["cfg"])
     hyper = TrainHyper(feature_jitter_std=0.0)
     t = setup.transformer
     steps, metrics, before = {}, {}, {}
@@ -733,10 +1099,17 @@ def phase_check(setup, batches, dev):
         step = make_train_step(model, hyper, t.means, t.stds,
                                dev if where == "cuda" else "cpu")
         before[where] = [p.detach().cpu().clone() for p in step.params]
+        reset_counts()
         m = step(DeviceBatch.from_batch(batches[0], step.params[0].device),
                  None, CHECK_LR_MEAN, CHECK_LR_SIGMA)
         metrics[where] = [float(x) for x in m]
         steps[where] = step
+        if where == "cuda":
+            counts = read_counts()
+            if (counts[spec["fwd"]], counts[spec["bwd"]]) != (
+                    2 * cfg.layers, 2 * cfg.layers):
+                raise AssertionError(f"train step check on {rung}: launches "
+                                     f"{counts}")
     if not all(torch.equal(a, b) for a, b in zip(before["cuda"],
                                                  before["cpu"])):
         raise AssertionError("train step check: the two models start from "
@@ -794,14 +1167,15 @@ def phase_check(setup, batches, dev):
     if left_out > 0.1 * total:
         raise AssertionError(f"train step update: {left_out} of {total} "
                              "elements have a gradient of about zero")
-    say("check", what="train_step_card_vs_cpu", rtol=rtol, atol=atol,
-        lr_mean=CHECK_LR_MEAN, lr_sigma=CHECK_LR_SIGMA, leaves=len(names),
+    say("check", rung=rung, what="train_step_card_vs_cpu", rtol=rtol,
+        atol=atol, lr_mean=CHECK_LR_MEAN, lr_sigma=CHECK_LR_SIGMA,
+        leaves=len(names),
         loss_sum=f"{metrics['cuda'][0]:.6f}",
         max_abs_err_metric=f"{worst_metric:.3e}",
         update_elements_left_out=f"{left_out}/{total}",
         of_them_sign_open=left_sign)
     for kind, (name, e, leaf_scale, share) in worst.items():
-        say("check", kind=kind, nearest_limit_leaf=name,
+        say("check", rung=rung, kind=kind, nearest_limit_leaf=name,
             max_abs_err=f"{e:.3e}", leaf_scale=f"{leaf_scale:.3e}",
             share_of_limit=f"{share:.3f}")
 
@@ -901,18 +1275,117 @@ def eproj_bwd_bound_ms(case):
 def segsum_bound_ms(case):
     """Least time for kernel 7's work: every row the result needs (those
     before the dummy row's last segment, whose sum is unspecified) and its
-    order entry read once, the starts read once, the f32 output written
-    once; one f32 add per element read."""
+    order entry (none for the identity order) read once, the starts read
+    once, the f32 output written once; one f32 add per element read."""
     v = case["values"]
     width = v.shape[1]
     n = case["starts"].shape[0]
     rows = int(case["starts"][-1].item())
-    nbytes = (v.element_size() * rows * width + 4 * (rows + n)
+    orders = rows if case["order"] is not None else 0
+    nbytes = (v.element_size() * rows * width + 4 * (orders + n)
               + 4 * n * width)
     ops = rows * width
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def _bound_ms(nbytes: float, ops: float, item: int):
+    """(ms, 'bytes' or 'operations'): the larger of the bytes over the
+    memory rate and the operations over the peak rate of the input type."""
+    dtype = "bfloat16" if item == 2 else "float32"
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def attn_bound_ms(c):
+    """Kernel 3: q, the live edges' rows of k, v and scale_t, mask2 and
+    row_ptr read once; out and the stats written once. Operations: q·k and
+    α·v per live edge and channel, the softmax's few per (edge, head)."""
+    n, hidden = c["q"].shape
+    heads, item = c["heads"], c["q"].element_size()
+    live = int((c["mask2"] > 0).sum().item())
+    nbytes = (item * (n * hidden + 2 * live * hidden)
+              + 4 * (live * heads + c["mask2"].numel() + n + 1)
+              + 4 * (n * hidden + 2 * n * heads))
+    return _bound_ms(nbytes, 4 * live * hidden + 6 * live * heads, item)
+
+
+def attn_bwd_bound_ms(c):
+    """Kernel 4: q, g, the stats, the live edges' rows of k, v and scale_t,
+    mask2 and row_ptr read once; dq and every row of dk and dv written once.
+    Operations: q·k, g·v, dq, dk and dv per live edge and channel, the
+    softmax gradient's few per (edge, head)."""
+    n, hidden = c["q"].shape
+    heads, item = c["heads"], c["q"].element_size()
+    e_total = c["k"].shape[0]
+    live = int(((c["mask2"] > 0) & (c["dst"] != n - 1)).sum().item())
+    nbytes = (item * (2 * n * hidden + 2 * live * hidden
+                      + 2 * e_total * hidden)
+              + 4 * (n * hidden + 2 * n * heads + live * heads + e_total
+                     + n + 1))
+    return _bound_ms(nbytes, 10 * live * hidden + 10 * live * heads, item)
+
+
+def agg_bound_ms(c):
+    """Kernel 1: every logit (they carry the mask), the live edges' rows of
+    v and scale_t, and row_ptr read once; out and the stats written once.
+    Operations: α·v per live edge and channel, the softmax's few per (edge,
+    head)."""
+    heads, e_total = c["logits_t"].shape
+    n, hidden, item = c["n"], c["v"].shape[1], c["v"].element_size()
+    live = int((c["mask2"] > 0).sum().item())
+    nbytes = (item * live * hidden
+              + 4 * (heads * e_total + live * heads + n + 1)
+              + 4 * (n * hidden + 2 * n * heads))
+    return _bound_ms(nbytes, 2 * live * hidden + 6 * live * heads, item)
+
+
+def agg_bwd_bound_ms(c):
+    """Kernel 2: every logit, the live edges' rows of v and scale_t, g, the
+    stats and row_ptr read once; every column of dl_t and row of dv written
+    once. Operations: g·v and dv per live edge and channel, the softmax
+    gradient's few per (edge, head)."""
+    heads, e_total = c["logits_t"].shape
+    n, hidden, item = c["n"], c["v"].shape[1], c["v"].element_size()
+    live = int(((c["mask2"] > 0) & (c["dst"] != n - 1)).sum().item())
+    nbytes = (item * (live * hidden + e_total * hidden)
+              + 4 * (2 * heads * e_total + live * heads + n * hidden
+                     + 2 * n * heads + n + 1))
+    return _bound_ms(nbytes, 3 * live * hidden + 10 * live * heads, item)
+
+
+def phase_rung_times(rung_flag):
+    """Kernels 3, 4, 1 and 2 at the flagship conv shapes → {kernel: cases}."""
+    from gnnep_tpu_torch.ops.cuda import aggregate as ag
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    out = {}
+    out["attn_fwd"] = kernel_times(
+        "attn_fwd", rung_flag["attn_fwd"],
+        lambda c: at.attention_cuda(*attn_fwd_args(c), c["row_ptr"],
+                                    heads=c["heads"]),
+        lambda c: at.attention_plain(*attn_fwd_args(c), c["dst"],
+                                     heads=c["heads"]),
+        attn_bound_ms)
+    out["softmax_aggregate_fwd"] = kernel_times(
+        "softmax_aggregate_fwd", rung_flag["softmax_aggregate_fwd"],
+        lambda c: ag.aggregate_cuda(*agg_fwd_args(c), heads=c["heads"]),
+        lambda c: ag.aggregate_plain(*agg_fwd_args(c), c["dst"],
+                                     heads=c["heads"]),
+        agg_bound_ms)
+    for kernel, bound in (("attn_bwd", attn_bwd_bound_ms),
+                          ("softmax_aggregate_bwd", agg_bwd_bound_ms)):
+        args = {id(c): rung_bwd_inputs(kernel, c)
+                for c, _ in rung_flag[kernel].values()}
+        cuda = (at.attention_bwd_cuda if kernel == "attn_bwd"
+                else ag.aggregate_bwd_cuda)
+        out[kernel] = kernel_times(
+            kernel, rung_flag[kernel],
+            lambda c, cuda=cuda: cuda(*args[id(c)], heads=c["heads"]),
+            lambda c, kernel=kernel: run_bwd_plain(kernel, c, args[id(c)]),
+            bound)
+    return out
 
 
 def kernel_times(name, flagship, run_kernel, run_plain, bound_fn,
@@ -976,9 +1449,6 @@ def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
         library=index_add)
 
     store = setup.store
-    cfg = flagship_config(node_dim=store.node_dim, edge_dim=store.edge_dim,
-                          angle_dim=store.angle_dim,
-                          global_dim=store.global_scalar_dim + 230)
     # full batches only: an epoch's short last batch is not the step that
     # sets throughput
     full = [b for b in batches
@@ -986,39 +1456,47 @@ def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
     dbs = [DeviceBatch.from_batch(b, dev) for b in full]
     real = [BATCH] * len(full)
     steps = {}
-    for dtype in ("float32", "bfloat16"):
-        step = make_train_step(
-            init_alignn(np.random.default_rng(SEED + 7), cfg),
-            TrainHyper(compute_dtype=dtype), setup.transformer.means,
-            setup.transformer.stds, dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(SEED)
-        state = {"i": 0}
+    for rung in ("eproj", *RUNGS):
+        cfg = flagship_config(node_dim=store.node_dim,
+                              edge_dim=store.edge_dim,
+                              angle_dim=store.angle_dim,
+                              global_dim=store.global_scalar_dim + 230,
+                              **RUNGS.get(rung, {"cfg": {}})["cfg"])
+        steps[rung] = {}
+        for dtype in ("float32", "bfloat16"):
+            step = make_train_step(
+                init_alignn(np.random.default_rng(SEED + 7), cfg),
+                TrainHyper(compute_dtype=dtype), setup.transformer.means,
+                setup.transformer.stds, dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED)
+            state = {"i": 0}
 
-        def one():
-            step(dbs[state["i"] % len(dbs)], gen, 1e-4, 1e-4)
-            state["i"] += 1
+            def one():
+                step(dbs[state["i"] % len(dbs)], gen, 1e-4, 1e-4)
+                state["i"] += 1
 
-        torch.cuda.reset_peak_memory_stats(dev)
-        ms = median_ms(one)
-        steps[dtype] = {"ms_per_step": ms,
-                        "graphs_per_s": float(np.mean(real) / ms * 1e3)}
-        say("times", train_step=dtype, ms_per_step=f"{ms:.3f}",
-            graphs_per_step=f"{np.mean(real):.1f}",
-            graphs_per_s=f"{np.mean(real) / ms * 1e3:.0f}",
-            peak_mem_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}")
-        steps[dtype]["busy_share"] = profile_run(
-            lambda: [step(db, gen, 1e-4, 1e-4) for db in dbs], "train_step",
-            dtype, len(dbs))
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = median_ms(one)
+            rec = {"ms_per_step": ms,
+                   "graphs_per_s": float(np.mean(real) / ms * 1e3)}
+            say("times", rung=rung, train_step=dtype, ms_per_step=f"{ms:.3f}",
+                graphs_per_step=f"{np.mean(real):.1f}",
+                graphs_per_s=f"{np.mean(real) / ms * 1e3:.0f}",
+                peak_mem_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}")
+            rec["busy_share"], rec["device_ms_per_step"] = profile_run(
+                lambda: [step(db, gen, 1e-4, 1e-4) for db in dbs],
+                f"train_step_{rung}", dtype, len(dbs))
+            steps[rung][dtype] = rec
     return bwd, seg, steps
 
 
-def profile_run(run_all, label: str, dtype: str, n_calls: int) -> float:
+def profile_run(run_all, label: str, dtype: str, n_calls: int):
     """Device time by kernel over one pass of `run_all` (n_calls forwards
     or train steps), from torch.profiler: the device's busy share of the
     traced wall time (the tracer's own host cost inflates the wall time, so
-    this share is a lower bound; returned) and the kernels that take the
-    most of it."""
+    this share is a lower bound) and the kernels that take the most of it.
+    Returns (busy share, device ms per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run_all()
@@ -1047,7 +1525,7 @@ def profile_run(run_all, label: str, dtype: str, n_calls: int) -> float:
     for e in events[:8]:
         say("profile", run=label, kernel=repr(e.key[:60]), calls=e.count,
             device_ms_per_call=f"{dev_us(e) / 1e3 / n_calls:.3f}")
-    return busy_us / wall_us
+    return busy_us / wall_us, busy_us / 1e3 / n_calls
 
 
 def main() -> int:
@@ -1070,10 +1548,21 @@ def main() -> int:
         flagship = phase_kernel(dev, batches[0])
         bwd_flag = phase_kernel_bwd(dev, train_batches[0])
         seg_flag = phase_kernel_segsum(dev, train_batches[0])
+        rung_flag = phase_kernel_rungs(dev, train_batches[0])
         launches = phase_serve(root, data, ens, cfg, batches, dev)
+        rung_serve = {
+            rung: phase_serve(root, data,
+                              write_rung_ensemble(root, ens, cfg, rung), cfg,
+                              batches, dev, members=RUNG_MEMBERS,
+                              kernel=spec["fwd"], tag=f"_{rung}")
+            for rung, spec in RUNGS.items()}
         runs = phase_train(root, data, cfg.layers)
-        phase_check(setup, train_batches, dev)
+        rung_train = {rung: phase_train_rung(root, data, cfg.layers, rung)
+                      for rung in RUNGS}
+        for rung in ("eproj", *RUNGS):
+            phase_check(setup, train_batches, dev, rung)
         cases = phase_times(flagship, batches, ens, dev)
+        rung_cases = phase_rung_times(rung_flag)
         bwd_cases, seg_cases, step_times = phase_train_times(
             bwd_flag, seg_flag, setup, train_batches, dev)
 
@@ -1104,10 +1593,23 @@ def main() -> int:
                train["bfloat16"]["csr_segment_sum"], "train"),
     ]
     kernels[0]["launches_train"] = train["float32"]["attn_eproj_fwd"]
+    for rung, spec in RUNGS.items():
+        fwd = record(spec["fwd"], rung_cases[spec["fwd"]],
+                     rung_serve[rung]["float32"],
+                     rung_serve[rung]["bfloat16"], f"serve_{rung}")
+        fwd["launches_train"] = rung_train[rung]["counts"][spec["fwd"]]
+        kernels += [fwd, record(spec["bwd"], rung_cases[spec["bwd"]],
+                                rung_train[rung]["counts"][spec["bwd"]], None,
+                                f"train_{rung}")]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "train": {
         d: {"optimizer_steps": r["steps"], "cli_seconds": r["seconds"],
-            **step_times[d]} for d, r in runs.items()}}), flush=True)
+            **step_times["eproj"][d]} for d, r in runs.items()},
+        "train_rungs": {
+            rung: {"optimizer_steps": r["steps"], "cli_seconds": r["seconds"],
+                   "eval_forwards": r["eval_forwards"],
+                   "step_times": step_times[rung]}
+            for rung, r in rung_train.items()}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

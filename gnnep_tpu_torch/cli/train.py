@@ -124,10 +124,14 @@ def build_parser() -> argparse.ArgumentParser:
     import os as _os
     p.add_argument("--no-attn-fused", dest="attn_fused", action="store_false",
                    default=_os.environ.get("GNNEP_ATTN_FUSED", "1") != "0",
-                   help=_NOT_PORTED + "raises on the card")
+                   help="With --conv-impl fused: the external-logits rung "
+                        "(its own CUDA kernels); ignored otherwise, as in "
+                        "the JAX package")
     p.add_argument("--no-attn-eproj", dest="attn_eproj", action="store_false",
                    default=_os.environ.get("GNNEP_ATTN_EPROJ", "1") != "0",
-                   help=_NOT_PORTED + "raises on the card")
+                   help="With --conv-impl fused: the kv+e rung (its own "
+                        "CUDA kernels); ignored otherwise, as in the JAX "
+                        "package")
     p.add_argument("--prng-impl", choices=["rbg", "threefry2x32"],
                    default="rbg",
                    help="Accepted and ignored: a TPU PRNG stream choice. "

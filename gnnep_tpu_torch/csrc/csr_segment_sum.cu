@@ -8,12 +8,14 @@
 //
 //   out[n, :] = sum_{j in [seg_starts[n], end_n)} values[order[j], :]
 //
-// with end_n = seg_starts[n + 1], for every segment but the last. The last
-// segment is the dummy row's, which owns the arena's tail padding; its sum
-// is unspecified by the contract, as the JAX package's `measure_seg_win64`
-// states, and it is written as zeros. values [E, W] float32 or bfloat16,
-// order i32 [E], seg_starts i32 [N]; out f32 [N, W]. The caller casts the
-// result to the cotangent's type, as `_csr_gather_ordered_bwd` does.
+// with end_n = seg_starts[n + 1], for every segment but the last; a null
+// `order` is the identity (the backward of `csr_gather`, whose index is the
+// arena's own sort key). The last segment is the dummy row's, which owns
+// the arena's tail padding; its sum is unspecified by the contract, as the
+// JAX package's `measure_seg_win64` states, and it is written as zeros.
+// values [E, W] float32 or bfloat16, order i32 [E] or null, seg_starts i32
+// [N]; out f32 [N, W]. The caller casts the result to the cotangent's type,
+// as `_csr_gather_ordered_bwd` does.
 //
 // Design. The TPU kernel multiplies a 0/1 membership matrix into a window
 // of rows on the matrix unit. Here one warp owns one segment and streams
@@ -94,7 +96,7 @@ __global__ void __launch_bounds__(kThreads)
       float x[kRowsInFlight][VEC];
 #pragma unroll
       for (int r = 0; r < kRowsInFlight; ++r) {
-        const long long row = order[j + r];
+        const long long row = order ? order[j + r] : j + r;
         load_vec<VEC>(values + static_cast<size_t>(row) * width + c0, x[r]);
       }
 #pragma unroll
@@ -103,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int i = 0; i < VEC; ++i) acc[i] += x[r][i];
     }
     for (; j < hi; ++j) {
-      const long long row = order[j];
+      const long long row = order ? order[j] : j;
       float x[VEC];
       load_vec<VEC>(values + static_cast<size_t>(row) * width + c0, x);
 #pragma unroll
@@ -147,7 +149,7 @@ extern "C" {
 // Launches on `stream` and returns cudaGetLastError() (0 = launched). The
 // caller guarantees: n >= 1, contiguous tensors of the types above,
 // seg_starts nondecreasing within [0, E], and order a permutation of
-// [0, E). Four-column loads are taken where the
+// [0, E) or null (the identity). Four-column loads are taken where the
 // width and the base pointers allow them, single-column loads otherwise.
 int csr_segment_sum(const void* values, const void* order,
                     const void* seg_starts, void* out, int n, int width,

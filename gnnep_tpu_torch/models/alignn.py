@@ -40,9 +40,10 @@ LN_EPS = 1e-5  # torch.nn.LayerNorm default
 @dataclasses.dataclass(frozen=True)
 class AlignnConfig:
     """The JAX package's `AlignnConfig`, field for field, so the config JSON
-    embedded in a checkpoint round-trips between the packages. The win64,
-    span and `scan_layers` fields are TPU kernel and compile choices; the
-    port carries them and does not read them."""
+    embedded in a checkpoint round-trips between the packages. The win64
+    and `scan_layers` fields are TPU kernel and compile choices; the port
+    carries them and does not read them. It reads the span fields only to
+    refuse the span rung on the card."""
 
     node_dim: int
     edge_dim: int
@@ -53,17 +54,19 @@ class AlignnConfig:
     layers: int = 4
     heads: int = 4
     dropout: float = 0.15
-    # 'table' / 'fused' / 'coo': on the card all three run the eproj kernel;
-    # on the CPU 'coo' runs the readable COO conv, the others the kernel's
-    # plain version
+    # 'table' / 'fused' / 'coo': on the card all three run the kernels;
+    # on the CPU the eval forward of 'coo' runs the readable COO conv, every
+    # other forward the kernels' plain versions
     conv_impl: str = "table"
     edge_win64: int = 0
     lg_win64: int = 0
     edge_src_win64: int = 0
     lg_src_win64: int = 0
     scan_layers: bool = False
-    # fused-kernel ladder: only the default rung (both True) has a CUDA
-    # kernel yet; the others raise on the card
+    # fused-kernel ladder, read only under conv_impl='fused' (as the JAX
+    # package reads it): attn_fused=False is the external-logits rung,
+    # attn_eproj=False the kv+e rung, both with CUDA kernels; attn_span with
+    # measured span bounds has none yet and raises on the card
     attn_fused: bool = True
     attn_eproj: bool = True
     force_fused: bool = False
@@ -307,21 +310,23 @@ def _shared_trunk(model: Alignn, batch: DeviceBatch,
     else:
         from ..ops.dense_attention import transformer_conv_table
 
+        rung = dict(heads=cfg.heads, fused=cfg.conv_impl == "fused",
+                    attn_fused=cfg.attn_fused, attn_eproj=cfg.attn_eproj,
+                    dropout_rate=drop, generator=gen)
+
         def lg_conv(conv, state, feats):
             return transformer_conv_table(
                 conv.params(), state, batch.lg_src, batch.lg_dst, feats,
                 batch.lg_row_ptr, batch.lg_src_order, batch.lg_src_starts,
-                heads=cfg.heads, edge_mask=batch.lg_mask,
-                attn_fused=cfg.attn_fused, attn_eproj=cfg.attn_eproj,
-                dropout_rate=drop, generator=gen)
+                edge_mask=batch.lg_mask,
+                attn_span=cfg.attn_span and cfg.lg_span64 > 0, **rung)
 
         def atom_conv(conv, state, feats):
             return transformer_conv_table(
                 conv.params(), state, batch.edge_src, batch.edge_dst, feats,
                 batch.edge_row_ptr, batch.edge_src_order,
-                batch.edge_src_starts, heads=cfg.heads,
-                edge_mask=batch.edge_mask, attn_fused=cfg.attn_fused,
-                attn_eproj=cfg.attn_eproj, dropout_rate=drop, generator=gen)
+                batch.edge_src_starts, edge_mask=batch.edge_mask,
+                attn_span=cfg.attn_span and cfg.edge_span64 > 0, **rung)
 
     for li, (eb, nb) in enumerate(zip(model.edge_blocks, model.node_blocks)):
         # EdgeUpdate: line-graph conv with angle features

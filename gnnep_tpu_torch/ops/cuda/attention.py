@@ -1,0 +1,287 @@
+"""CSR attention over precomputed per-edge keys and values, forward and
+backward: the CUDA kernels `csrc/attn_fwd.cu` and `csrc/attn_bwd.cu`, their
+ctypes wrappers, their plain PyTorch versions, their launch counts and the
+`torch.autograd.Function` that joins them.
+
+Counterpart of `fused_attention` / `csr_attention` in
+`gnnep_tpu/ops/pallas/csr_attention.py` (TPU kernels `_attn_kernel` and
+`_attn_bwd_kernel`), the kv+e rung of the conv (`attn_eproj=False`):
+
+    out_n = Σ_{e→n} softmax_e(q_n·k_e/√c) · scale_e · v_e
+
+per head over the CSR segments of a dst-sorted edge arena, with `mask2`
+excluding edges before the softmax; differentiable in q, k_e and v_e. A
+tensor on the CPU takes the plain versions; a CUDA tensor launches the
+kernels or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..segment import segment_sum
+from . import build
+from .aggregate import (softmax_aggregate_edges, softmax_logit_grad,
+                        softmax_probs, widen)
+
+_KERNEL = "attn_fwd"
+_KERNEL_BWD = "attn_bwd"
+
+# kernel launches since the last reset, forward and backward; the chip smoke
+# run sets them to 0 just before it drives a path and reads them just after
+launches = 0
+bwd_launches = 0
+
+
+def inv_sqrt(ch: int) -> float:
+    """1/√ch rounded once to f32, as the kernels' constant is."""
+    return float(torch.tensor(1.0 / ch ** 0.5, dtype=torch.float32))
+
+
+def edge_logits(q: torch.Tensor, k: torch.Tensor, dst: torch.Tensor,
+                heads: int) -> torch.Tensor:
+    """q_dst·k/√c per edge and head → f32 [E, heads]: the products of the
+    input type summed in f32, as the kernels' f32-accumulated products."""
+    e_total, hidden = k.shape
+    ch = hidden // heads
+    return (q.float().index_select(0, dst) * k.float()).reshape(
+        e_total, heads, ch).sum(-1) * inv_sqrt(ch)
+
+
+def attention_plain(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
+                    scale_t: torch.Tensor, mask2: torch.Tensor,
+                    dst: torch.Tensor, *, heads: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 3 → (out f32 [N, H], max [N, heads],
+    denom [N, heads]), rounding where the TPU kernel rounds: f32 logits from
+    f32-accumulated products, α to v's type before the aggregation, all
+    sums f32."""
+    return softmax_aggregate_edges(
+        edge_logits(q, k_e, dst, heads), (mask2 > 0)[:, None], scale_t.t(),
+        v_e, dst, q.shape[0], heads)
+
+
+def attention_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale_t: torch.Tensor, mask2: torch.Tensor,
+                      row_ptr: torch.Tensor, dst: torch.Tensor,
+                      g: torch.Tensor, mx: torch.Tensor, den: torch.Tensor,
+                      *, heads: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention backward before its last rounding → f32 (dq [N, H],
+    dk [E, H], dv [E, H]), for kernel 4's plain version and kernel 6's.
+
+    A port of the JAX package's edge-space fallback (`_attn_bwd`,
+    `csr_attention.py:851-883`), with the segment-sum plain version in
+    place of `windowed_segment_sum`, rounding where the kernels round: g to
+    the input type before u and dv, dl and α to it before their products.
+    A dead edge (masked, or owned by the dummy row n−1, whose output is
+    unspecified) gets zero rows; so does the dummy row's dq."""
+    n = q.shape[0]
+    ch = k.shape[1] // heads
+    dt = k.dtype
+    inv = inv_sqrt(ch)
+    live = ((mask2 > 0) & (dst != n - 1))[:, None]
+    s = softmax_probs(edge_logits(q, k, dst, heads), live, mx, den, dst)
+    sc = scale_t.t()
+    q_e = q.float().index_select(0, dst)
+    g_e = g.to(dt).float().index_select(0, dst)
+    u = (g_e * v.float()).reshape(k.shape[0], heads, ch).sum(-1)
+    dl = widen(softmax_logit_grad(s, sc, u, row_ptr, dst).to(dt).float(), ch)
+    dq = segment_sum(dl * k.float(), dst, n) * inv
+    dk = dl * q_e * inv
+    dv = widen((s * sc).to(dt).float(), ch) * g_e
+    return dq, dk, dv
+
+
+def attention_bwd_plain(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
+                        scale_t: torch.Tensor, mask2: torch.Tensor,
+                        row_ptr: torch.Tensor, dst: torch.Tensor,
+                        g: torch.Tensor, mx: torch.Tensor, den: torch.Tensor,
+                        *, heads: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 4 → (dq [N, H], dk [E, H], dv [E, H])
+    in the input type (see `attention_bwd_f32`)."""
+    dq, dk, dv = attention_bwd_f32(q, k_e, v_e, scale_t, mask2, row_ptr, dst,
+                                   g, mx, den, heads=heads)
+    return dq.to(q.dtype), dk.to(k_e.dtype), dv.to(v_e.dtype)
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == _KERNEL and lib.attn_fwd.argtypes is None:
+        lib.attn_fwd.argtypes = ([p] * 10 + [i] * 4 + [ctypes.c_float, i, p])
+        lib.attn_fwd.restype = i
+    if name == _KERNEL_BWD and lib.attn_bwd.argtypes is None:
+        lib.attn_bwd.argtypes = ([p] * 14 + [i] * 4 + [ctypes.c_float, i, p])
+        lib.attn_bwd.restype = i
+    return lib
+
+
+def _check_inputs(q, k_e, v_e, scale_t, mask2, row_ptr, *, heads, extra=()):
+    """Raise on anything the kernels do not take. `extra` are further
+    (name, tensor, shape) f32 inputs of the backward → (n, hidden, E)."""
+    build.check_card_tensors(dict(q=q, k_e=k_e, v_e=v_e, scale_t=scale_t,
+                                  mask2=mask2, row_ptr=row_ptr,
+                                  **{name: t for name, t, _ in extra}))
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, not {q.dtype}")
+    if k_e.dtype != q.dtype or v_e.dtype != q.dtype:
+        raise TypeError(f"k_e is {k_e.dtype} and v_e {v_e.dtype}; q, k_e "
+                        f"and v_e must share one type ({q.dtype})")
+    if any(t.dtype != torch.float32
+           for t in (scale_t, mask2, *(t for _, t, _ in extra))):
+        raise TypeError("scale_t, mask2, g and the stats must be float32")
+    if row_ptr.dtype != torch.int32:
+        raise TypeError(f"row_ptr must be int32, not {row_ptr.dtype}")
+    n = q.shape[0]
+    hidden = q.shape[1] if q.dim() == 2 else -1
+    e_total = k_e.shape[0]
+    bad = [name for name, t, shape in extra if tuple(t.shape) != shape]
+    if (q.dim() != 2 or heads <= 0 or hidden % heads
+            or hidden // heads > 128 or e_total >= 2 ** 31
+            or tuple(k_e.shape) != (e_total, hidden)
+            or tuple(v_e.shape) != (e_total, hidden)
+            or tuple(scale_t.shape) != (heads, e_total)
+            or tuple(mask2.shape) != (e_total,)
+            or tuple(row_ptr.shape) != (n + 1,) or bad):
+        raise ValueError(
+            f"shapes the kernel does not take: q {tuple(q.shape)}, k_e "
+            f"{tuple(k_e.shape)}, v_e {tuple(v_e.shape)}, scale_t "
+            f"{tuple(scale_t.shape)}, mask2 {tuple(mask2.shape)}, row_ptr "
+            f"{tuple(row_ptr.shape)}, heads {heads} (needs hidden % heads "
+            f"== 0 and a head width <= 128); wrong shape: {bad}")
+    return n, hidden, e_total
+
+
+def attention_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
+                   scale_t: torch.Tensor, mask2: torch.Tensor,
+                   row_ptr: torch.Tensor, *, heads: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel 3 on the current stream → (out, max, denom) as
+    `attention_plain`. Raises on anything the kernel does not take."""
+    global launches
+    n, hidden, e_total = _check_inputs(q, k_e, v_e, scale_t, mask2, row_ptr,
+                                       heads=heads)
+    device = q.device
+    out = torch.empty((n, hidden), dtype=torch.float32, device=device)
+    mx = torch.empty((n, heads), dtype=torch.float32, device=device)
+    den = torch.empty((n, heads), dtype=torch.float32, device=device)
+    if n == 0:
+        return out, mx, den
+    # per-edge logits, written and read back by the warp that owns the edge
+    logit_s = torch.empty((heads, e_total), dtype=torch.float32,
+                          device=device)
+    lib = _lib(_KERNEL)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.attn_fwd(
+            q.data_ptr(), k_e.data_ptr(), v_e.data_ptr(), scale_t.data_ptr(),
+            mask2.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+            mx.data_ptr(), den.data_ptr(), logit_s.data_ptr(), n, e_total,
+            hidden, heads, inv_sqrt(hidden // heads),
+            int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{_KERNEL} launch failed with CUDA error {rc}")
+    launches += 1
+    return out, mx, den
+
+
+def attention_bwd_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
+                       scale_t: torch.Tensor, mask2: torch.Tensor,
+                       row_ptr: torch.Tensor, g: torch.Tensor,
+                       mx: torch.Tensor, den: torch.Tensor, *, heads: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel 4 on the current stream → (dq, dk, dv) as
+    `attention_bwd_plain`. `g` is the f32 cotangent of out. Raises on
+    anything the kernels do not take."""
+    global bwd_launches
+    n = q.shape[0]
+    extra = (("g", g, tuple(q.shape)), ("max", mx, (n, heads)),
+             ("denom", den, (n, heads)))
+    n, hidden, e_total = _check_inputs(q, k_e, v_e, scale_t, mask2, row_ptr,
+                                       heads=heads, extra=extra)
+    device = q.device
+    dq = torch.empty((n, hidden), dtype=q.dtype, device=device)
+    dk = torch.empty((e_total, hidden), dtype=q.dtype, device=device)
+    dv = torch.empty((e_total, hidden), dtype=q.dtype, device=device)
+    if n == 0:
+        return dq, dk.zero_(), dv.zero_()
+    # per-edge s and u, written and read back by the warp that owns the edge
+    s_s = torch.empty((heads, e_total), dtype=torch.float32, device=device)
+    u_s = torch.empty_like(s_s)
+    lib = _lib(_KERNEL_BWD)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.attn_bwd(
+            q.data_ptr(), k_e.data_ptr(), v_e.data_ptr(), scale_t.data_ptr(),
+            mask2.data_ptr(), row_ptr.data_ptr(), g.data_ptr(), mx.data_ptr(),
+            den.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            s_s.data_ptr(), u_s.data_ptr(), n, e_total, hidden, heads,
+            inv_sqrt(hidden // heads), int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{_KERNEL_BWD} launch failed with CUDA error "
+                           f"{rc}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class CsrAttention(torch.autograd.Function):
+    """The attention as one differentiable op: forward kernel 3 and backward
+    kernel 4 on the card, their plain versions on the CPU. Returns (out f32,
+    max, denom); max and denom carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k_e, v_e, scale_t, mask2, row_ptr, dst, heads):
+        if q.device.type == "cpu":
+            out, mx, den = attention_plain(q, k_e, v_e, scale_t, mask2, dst,
+                                           heads=heads)
+        else:
+            out, mx, den = attention_cuda(q, k_e, v_e, scale_t, mask2,
+                                          row_ptr, heads=heads)
+        ctx.save_for_backward(q, k_e, v_e, scale_t, mask2, row_ptr, dst, mx,
+                              den)
+        ctx.heads = heads
+        ctx.mark_non_differentiable(mx, den)
+        return out, mx, den
+
+    @staticmethod
+    def backward(ctx, g, _g_max, _g_den):
+        q, k_e, v_e, scale_t, mask2, row_ptr, dst, mx, den = ctx.saved_tensors
+        g = g.float().contiguous()
+        if q.device.type == "cpu":
+            dq, dk, dv = attention_bwd_plain(q, k_e, v_e, scale_t, mask2,
+                                             row_ptr, dst, g, mx, den,
+                                             heads=ctx.heads)
+        else:
+            dq, dk, dv = attention_bwd_cuda(q, k_e, v_e, scale_t, mask2,
+                                            row_ptr, g, mx, den,
+                                            heads=ctx.heads)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def fused_attention(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
+                    row_ptr: torch.Tensor, dst: torch.Tensor, *, heads: int,
+                    scale_t: Optional[torch.Tensor] = None,
+                    mask_e: Optional[torch.Tensor] = None,
+                    return_stats: bool = False):
+    """Fused CSR attention, JAX argument layout: `k_e`, `v_e` [E, H] the
+    per-edge keys and values, `row_ptr` [N+1] the CSR pointers of the sorted
+    `dst` [E]. `scale_t` [heads, E] multiplies α after normalisation
+    (dropout; default ones); `mask_e` [E] excludes edges before the softmax
+    (default none). Returns out f32 [N, H], plus (max, denom) [N, heads]
+    with `return_stats`; differentiable in q, k_e and v_e. The dummy row's
+    (n−1) output is unspecified, and its edges carry no gradient."""
+    e_total = k_e.shape[0]
+    if scale_t is None:
+        scale_t = torch.ones((heads, e_total), dtype=torch.float32,
+                             device=k_e.device)
+    mask2 = (torch.ones(e_total, dtype=torch.float32, device=k_e.device)
+             if mask_e is None
+             else mask_e.to(torch.float32).reshape(e_total).contiguous())
+    res = CsrAttention.apply(q.contiguous(), k_e.contiguous(),
+                             v_e.contiguous(), scale_t.contiguous(), mask2,
+                             row_ptr, dst, heads)
+    return res if return_stats else res[0]

@@ -20,11 +20,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..segment import segment_max, segment_sum
 from . import build
-from .segment_sum import csr_segment_sum_plain
+from .aggregate import softmax_aggregate_edges
+from .attention import attention_bwd_f32, edge_logits
 
-_NEG = -1e30
 _KERNEL = "attn_eproj_fwd"
 _KERNEL_BWD = "attn_eproj_bwd"
 
@@ -41,24 +40,13 @@ def attention_eproj_plain(q: torch.Tensor, kv: torch.Tensor, ea: torch.Tensor,
     """Plain PyTorch version → (out f32 [N, H], max [N, heads], denom
     [N, heads]), rounding where the TPU kernel rounds: e to the input type
     before the k/v adds, α to v's type before the aggregation, all sums f32."""
-    n = q.shape[0]
-    e_total, hidden = kv.shape[0], kv.shape[1] // 2
-    ch = hidden // heads
+    hidden = kv.shape[1] // 2
     e = (ea.float() @ w_edge.float()).to(kv.dtype)
     k = kv[:, :hidden] + e
     v = kv[:, hidden:] + e
-    logits = (q.float().index_select(0, dst) * k.float()).reshape(
-        e_total, heads, ch).sum(-1) * (1.0 / ch ** 0.5)          # [E, heads]
-    live = (mask2 > 0)[:, None]
-    mat = torch.where(live, logits, torch.full_like(logits, _NEG))
-    mx = segment_max(mat, dst, n).clamp_min(_NEG)
-    ex = torch.where(live, torch.exp(mat - mx.index_select(0, dst)),
-                     torch.zeros_like(mat))
-    den = segment_sum(ex, dst, n).clamp_min(1e-16)
-    alpha = (ex / den.index_select(0, dst)) * scale_t.t()
-    alpha = alpha.to(v.dtype).float()
-    msg = alpha[:, :, None] * v.float().reshape(e_total, heads, ch)
-    return segment_sum(msg.reshape(e_total, hidden), dst, n), mx, den
+    return softmax_aggregate_edges(
+        edge_logits(q, k, dst, heads), (mask2 > 0)[:, None], scale_t.t(), v,
+        dst, q.shape[0], heads)
 
 
 def attention_eproj_bwd_plain(q: torch.Tensor, kv: torch.Tensor,
@@ -72,46 +60,23 @@ def attention_eproj_bwd_plain(q: torch.Tensor, kv: torch.Tensor,
     """Plain PyTorch backward → (dq [N, H], dkv [E, 2H], dea [E, Fe]) in the
     input type and dW_e f32 [Fe, H].
 
-    A port of the JAX package's edge-space fallback
-    (`csr_attention.py:1396-1432`), with the segment-sum plain version of
-    `csrc/csr_segment_sum.cu` in place of `windowed_segment_sum`, rounding
-    where the CUDA kernel and the TPU kernel round: g to the input type
-    before u and dv, dl and α to it, dq, dk, dv, de and dea after their f32
-    sums. A dead edge (masked, or owned by the dummy row n-1, whose output
-    is unspecified) gets zero rows."""
-    n = q.shape[0]
-    e_total, hidden = kv.shape[0], kv.shape[1] // 2
-    ch = hidden // heads
+    The attention backward of `attention.attention_bwd_f32` (a port of the
+    JAX package's edge-space fallback, `csr_attention.py:1396-1432`) on
+    k = kv[:, :H] + e and v = kv[:, H:] + e, rounding where the CUDA kernel
+    and the TPU kernel round: e to the input type, dq, dk, dv and de after
+    their f32 sums, dea after its f32 product. A dead edge (masked, or owned
+    by the dummy row n-1, whose output is unspecified) gets zero rows."""
+    hidden = kv.shape[1] // 2
     dt = kv.dtype
-    inv = float(torch.tensor(1.0 / ch ** 0.5, dtype=torch.float32))
-
-    def widen(x):                                  # [E, heads] → [E, H]
-        return x.repeat_interleave(ch, dim=1)
-
     e = (ea.float() @ w_edge.float()).to(dt)
-    k = (kv[:, :hidden] + e).float()
-    v = (kv[:, hidden:] + e).float()
-    q_e = q.float().index_select(0, dst)
-    logits = (q_e * k).reshape(e_total, heads, ch).sum(-1) * inv
-    live = ((mask2 > 0) & (dst != n - 1))[:, None]
-    # select before the exp: an all-masked row keeps max −1e30
-    s = torch.where(live, torch.exp(torch.where(live, logits, 0.0)
-                                    - mx.index_select(0, dst))
-                    / den.index_select(0, dst), 0.0)
-    sc = scale_t.t()
-    g_e = g.float().to(dt).float().index_select(0, dst)
-    u = (g_e * v).reshape(e_total, heads, ch).sum(-1)
-    w = sc * u
-    inner = csr_segment_sum_plain(s * w, None, row_ptr[:-1])
-    dl = (s * (w - inner.index_select(0, dst))).to(dt).float()
-    dk = widen(dl) * q_e * inv
-    dv = widen((s * sc).to(dt).float()) * g_e
-    dq = (segment_sum(widen(dl) * k, dst, n) * inv).to(q.dtype)
+    dq, dk, dv = attention_bwd_f32(q, kv[:, :hidden] + e, kv[:, hidden:] + e,
+                                   scale_t, mask2, row_ptr, dst, g, mx, den,
+                                   heads=heads)
     de = (dk + dv).to(dt)
     dkv = torch.cat([dk.to(dt), dv.to(dt)], dim=1)
     dea = (de.float() @ w_edge.float().t()).to(ea.dtype)
     dw = ea.float().t() @ de.float()
-    return dq, dkv, dea, dw
+    return dq.to(q.dtype), dkv, dea, dw
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -158,16 +123,10 @@ def _check_inputs(q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, *, heads,
     n, hidden = q.shape[0], q.shape[1] if q.dim() == 2 else -1
     e_total = kv.shape[0]
     fe = ea.shape[1] if ea.dim() == 2 else -1
-    device = q.device
     tensors = dict(q=q, kv=kv, ea=ea, w_edge=w_edge, scale_t=scale_t,
                    mask2=mask2, row_ptr=row_ptr, dst=dst)
     tensors.update({name: t for name, t, _, _ in extra})
-    for name, t in tensors.items():
-        if t.device != device or device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; every input must be "
-                             f"on the one CUDA device of q ({device})")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    build.check_card_tensors(tensors)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, not {q.dtype}")
     for name in ("kv", "ea", "w_edge"):

@@ -17,6 +17,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build" / "kernels"
@@ -94,3 +96,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _libs[name] = lib
     return lib
+
+
+def check_card_tensors(tensors: Dict[str, torch.Tensor]) -> torch.device:
+    """Raise unless every tensor is contiguous and on one CUDA device, that
+    of the first; returns the device."""
+    first, t0 = next(iter(tensors.items()))
+    device = t0.device
+    for name, t in tensors.items():
+        if t.device != device or device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; every input must be "
+                             f"on the one CUDA device of {first} ({device})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return device

@@ -1,35 +1,46 @@
 """The transformer conv as the serving and training paths run it.
 
-Counterpart of `gnnep_tpu.ops.dense_attention.transformer_conv_table` on its
-default fused rung (`attn_fused=True`, `attn_eproj=True`):
+Counterpart of `gnnep_tpu.ops.dense_attention.transformer_conv_table`:
 
 - one [H_in, 4H] projection for q/k/v/skip;
 - kv = (k‖v)[src]: a plain gather in the forward, whose backward runs over
   the packer's source-sorted index (`src_order`, `src_starts`) through the
   CSR segment-sum kernel (`ops/cuda/segment_sum.py`), as the JAX package's
   `csr_gather_ordered`;
-- the eproj attention kernels (`ops/cuda/attention_eproj.py`), which form the
-  edge projection, the logits, the masked segment softmax and the aggregation
-  in one launch on the card, and its gradient in one more, or their plain
-  versions on the CPU;
+- the attention, on one of three rungs of the JAX package's fused-kernel
+  ladder, each a pair of CUDA kernels on the card (forward and gradient) or
+  their plain versions on the CPU:
+  - eproj (default): the edge projection, logits, masked segment softmax
+    and aggregation in one kernel (`ops/cuda/attention_eproj.py`);
+  - kv+e (`attn_eproj=False`): e = edge_attr·W_e as a plain product, then
+    the attention over k = kv[:, :H] + e and v = kv[:, H:] + e
+    (`ops/cuda/attention.py`);
+  - external logits (`attn_fused=False`): q gathered by dst (`csr_gather`,
+    whose backward is the segment-sum kernel over the identity order), the
+    [heads, E] logits and their mask as plain tensor ops, then the segment
+    softmax-aggregate (`ops/cuda/aggregate.py`);
 - attention dropout as a [heads, E] scale on α, drawn from a generator;
 - the β blend.
 
-On the TPU, 'table', 'coo' and 'fused' were three formulations of one
-function; on the card all three run this kernel. The other ladder rungs
-(`attn_fused=False`: external logits, TPU kernel `_kernel`; `attn_eproj=False`:
-the kv+e boundary, `_attn_kernel`) are not ported yet, and on the card they
-raise rather than substitute another formulation.
+As in the JAX package, the rung flags act only under `fused` (the
+checkpoint's `conv_impl == 'fused'`); 'table' and 'coo' run the eproj rung,
+which is the same function. The span rung (`attn_span` with measured span
+bounds) has no CUDA kernel yet and raises on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from .cuda.aggregate import fused_aggregate_t
+from .cuda.attention import fused_attention
 from .cuda.attention_eproj import fused_attention_eproj
-from .cuda.segment_sum import csr_gather_ordered
+from .cuda.segment_sum import csr_gather, csr_gather_ordered
 from .graph_attention import TransformerConvParams, beta_blend
+
+_NEG = -1e30
 
 
 def transformer_conv_table(params: TransformerConvParams, x: torch.Tensor,
@@ -38,23 +49,27 @@ def transformer_conv_table(params: TransformerConvParams, x: torch.Tensor,
                            src_order: torch.Tensor, src_starts: torch.Tensor,
                            *, heads: int,
                            edge_mask: Optional[torch.Tensor] = None,
+                           fused: bool = False,
                            attn_fused: bool = True,
                            attn_eproj: bool = True,
+                           attn_span: bool = False,
                            dropout_rate: float = 0.0,
                            generator: Optional[torch.Generator] = None
                            ) -> torch.Tensor:
     """β-gated transformer conv over the dst-sorted arena (`row_ptr` [N+1]
     int32 CSR pointers of `dst`); `src_order` [E] / `src_starts` [N] (int32)
-    index the edges by source for the kv gather's backward. With a
-    `generator` and `dropout_rate` > 0, α is scaled by
-    bernoulli(1−p)/(1−p) per (head, edge), as in the JAX package."""
-    if x.device.type == "cuda" and not (attn_fused and attn_eproj):
-        rung = "_kernel" if not attn_fused else "_attn_kernel"
+    index the edges by source for the kv gather's backward. `fused` lets
+    `attn_fused` / `attn_eproj` pick the rung; `attn_span` means the span
+    rung would take effect (span bounds measured). With a `generator` and
+    `dropout_rate` > 0, α is scaled by bernoulli(1−p)/(1−p) per (head,
+    edge), as in the JAX package."""
+    use_attn = not fused or attn_fused
+    use_eproj = use_attn and (not fused or attn_eproj)
+    if fused and use_eproj and attn_span and x.device.type == "cuda":
         raise NotImplementedError(
-            f"attn_fused={attn_fused}, attn_eproj={attn_eproj} selects the "
-            f"TPU ladder rung of `{rung}`, which has no CUDA kernel yet "
-            "(ROADMAP.md, Queue B); only the default eproj rung runs on "
-            "the card")
+            "attn_span with measured span bounds selects the TPU ladder rung "
+            "of `_attn_sp_kernel`, which has no CUDA kernel yet (ROADMAP.md, "
+            "Queue B)")
     hidden = params.w_query.shape[1]
     w_all = torch.cat([params.w_query, params.w_key, params.w_value,
                        params.w_skip], dim=1)
@@ -70,7 +85,27 @@ def transformer_conv_table(params: TransformerConvParams, x: torch.Tensor,
         keep = torch.rand((heads, src.shape[0]), generator=generator,
                           device=x.device) < 1.0 - dropout_rate
         scale_t = keep.to(torch.float32) / (1.0 - dropout_rate)
-    msg = fused_attention_eproj(q, kv, edge_attr.contiguous(), params.w_edge,
-                                row_ptr, dst, heads=heads, scale_t=scale_t,
-                                mask_e=edge_mask).to(x.dtype)
-    return beta_blend(params.w_beta, r, msg)
+    if use_eproj:
+        msg = fused_attention_eproj(q, kv, edge_attr.contiguous(),
+                                    params.w_edge, row_ptr, dst, heads=heads,
+                                    scale_t=scale_t, mask_e=edge_mask)
+        return beta_blend(params.w_beta, r, msg.to(x.dtype))
+    e = edge_attr @ params.w_edge                       # [E, H]
+    k_j = kv[:, :hidden] + e
+    v_j = kv[:, hidden:] + e
+    if use_attn:
+        msg = fused_attention(q, k_j, v_j, row_ptr, dst, heads=heads,
+                              scale_t=scale_t, mask_e=edge_mask)
+        return beta_blend(params.w_beta, r, msg.to(x.dtype))
+    # the external [heads, E] logits: the product q_dst·k_j in the compute
+    # type, summed per head in f32 (the JAX package's block-sum GEMM)
+    ch = hidden // heads
+    q_dst = csr_gather(q, dst, row_ptr[:-1])
+    logits_t = ((q_dst * k_j).float().reshape(-1, heads, ch).sum(-1).t()
+                / math.sqrt(ch))
+    if edge_mask is not None:
+        logits_t = torch.where(edge_mask[None, :] > 0, logits_t,
+                               torch.full_like(logits_t, _NEG))
+    msg = fused_aggregate_t(logits_t, v_j, row_ptr, dst=dst, heads=heads,
+                            scale_t=scale_t)
+    return beta_blend(params.w_beta, r, msg.to(x.dtype))

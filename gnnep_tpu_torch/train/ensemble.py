@@ -39,10 +39,11 @@ from .metrics import error_stats
 N_SG_ONE_HOT = 230
 
 
-def check_supported(cfg: TrainConfig, device: torch.device) -> None:
-    """Raise NotImplementedError for every option that selects a path this
-    slice of the port does not run; none of them runs something else in its
-    place."""
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise NotImplementedError for every option that selects a path the
+    port does not run yet, on any device; none of them runs something else
+    in its place. The rung flags (`--no-attn-fused`, `--no-attn-eproj`) run
+    their own kernels."""
     unported = []
     if cfg.member_parallel in ("vmap", "shard"):
         unported.append(f"--member-parallel {cfg.member_parallel}")
@@ -61,8 +62,6 @@ def check_supported(cfg: TrainConfig, device: torch.device) -> None:
         unported.append("--resume / --checkpoint-every")
     if cfg.profile_dir:
         unported.append("--profile-dir")
-    if device.type == "cuda" and not (cfg.attn_fused and cfg.attn_eproj):
-        unported.append("--no-attn-fused / --no-attn-eproj on the card")
     if unported:
         raise NotImplementedError(
             "not ported to gnnep_tpu_torch yet (see ROADMAP.md): "
@@ -197,7 +196,7 @@ def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
     optimizer steps each member took). `device` None means CUDA, which must
     then be available."""
     dev = resolve_device(device)
-    check_supported(cfg, dev)
+    check_supported(cfg)
     t_start = time.time()
     setup = prepare(cfg, store)
     s = setup.store

@@ -193,11 +193,41 @@ def test_unported_option_raises(tmp_path, field):
 
 
 @pytest.mark.parametrize("flag", ["--no-attn-fused", "--no-attn-eproj"])
-def test_unported_rungs_raise_on_the_card(flag):
+def test_rung_flags_are_accepted(monkeypatch, flag):
+    """Each rung flag passes `check_supported` (on any device: both rungs
+    have their kernels) and lands in the member's config; under the default
+    `--conv-impl table` it leaves every conv on the eproj rung, as the JAX
+    package ignores it there (dense_attention.py:151-163)."""
+    from gnnep_tpu.data.batching import BatchBudget, BatchPacker
     from gnnep_tpu_torch.cli.train import build_parser, config_from_args
-    from gnnep_tpu_torch.train.ensemble import check_supported
+    from gnnep_tpu_torch.models import alignn as pm
+    from gnnep_tpu_torch.ops.cuda import aggregate, attention
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+    from gnnep_tpu_torch.train.ensemble import check_supported, model_config
 
-    cfg = config_from_args(build_parser().parse_args([flag]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(cfg, torch.device("cuda"))
-    check_supported(cfg, torch.device("cpu"))   # one function on the CPU
+    cfg = config_from_args(build_parser().parse_args(
+        [flag, "--hidden", "16", "--layers", "1", "--heads", "2"]))
+    check_supported(cfg)
+    samples = make_samples(4, seed=3)
+    store = PStore.from_samples(samples)
+    mc = model_config(cfg, store)
+    assert mc.conv_impl == "table"
+    assert (mc.attn_fused, mc.attn_eproj) == (flag != "--no-attn-fused",
+                                              flag != "--no-attn-eproj")
+    reached = {}
+    for mod, fn in ((ep, "attention_eproj_plain"),
+                    (attention, "attention_plain"),
+                    (aggregate, "aggregate_plain")):
+        def counted(*a, _fn=fn, _real=getattr(mod, fn), **k):
+            reached[_fn] = reached.get(_fn, 0) + 1
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, fn, counted)
+    jstore = JStore.from_samples(samples)
+    budget = BatchBudget.plan(jstore, range(4), batch_size=4)
+    batch = next(iter(BatchPacker(jstore, budget).pack(range(4))))
+    model = pm.init_alignn(np.random.default_rng(0), mc)
+    with torch.inference_mode():
+        mean, _ = pm.alignn_apply(model, pm.DeviceBatch.from_batch(batch,
+                                                                   "cpu"))
+    assert torch.isfinite(mean).all()
+    assert reached == {"attention_eproj_plain": 2 * mc.layers}

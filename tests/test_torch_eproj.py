@@ -98,11 +98,12 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize("fused,eproj", [(False, True), (True, False)])
-def test_unported_rungs_match_on_cpu(tmp_path, monkeypatch, fused, eproj):
+def test_rungs_match_jax_on_cpu(tmp_path, monkeypatch, fused, eproj):
     """On the CPU, a config that selects another ladder rung gives the
     activations of the JAX package's model on that rung: the external-logits
     kernel `_kernel` (attn_fused=False) or the kv+e kernel `_attn_kernel`
-    (attn_eproj=False), both in interpret mode. f32 at the model tests'
+    (attn_eproj=False), both in interpret mode, and the port reaches that
+    rung's own plain version, not the eproj one. f32 at the model tests'
     tolerance (test_pallas_kernel.py:228)."""
     import dataclasses
     import pathlib
@@ -117,6 +118,7 @@ def test_unported_rungs_match_on_cpu(tmp_path, monkeypatch, fused, eproj):
     from gnnep_tpu.models import alignn as jm
     from gnnep_tpu.train import artifacts as ja
     from gnnep_tpu_torch.models import alignn as pm
+    from gnnep_tpu_torch.ops.cuda import aggregate, attention
     from gnnep_tpu_torch.train import artifacts as pa
 
     store = make_store(6, seed=5)
@@ -143,9 +145,20 @@ def test_unported_rungs_match_on_cpu(tmp_path, monkeypatch, fused, eproj):
     assert calls, f"the JAX forward did not reach {rung}"
     model = pa.load_member(tmp_path / "model_0.npz", "cpu")
     assert (model.cfg.attn_fused, model.cfg.attn_eproj) == (fused, eproj)
+    plain = {"aggregate": (aggregate, "aggregate_plain"),
+             "attention": (attention, "attention_plain"),
+             "eproj": (ep, "attention_eproj_plain")}
+    reached = {name: 0 for name in plain}
+    for name, (mod, fn) in plain.items():
+        def counted(*a, _name=name, _real=getattr(mod, fn), **k):
+            reached[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, fn, counted)
     with torch.inference_mode():
         got = pm.alignn_activations(model,
                                     pm.DeviceBatch.from_batch(batch, "cpu"))
+    own = "aggregate" if not fused else "attention"
+    assert reached == {**dict.fromkeys(plain, 0), own: 2 * cfg.layers}
     assert set(got) == set(want)
     for name, value in want.items():
         np.testing.assert_allclose(got[name].numpy(), np.asarray(value),
@@ -197,17 +210,27 @@ def test_card_refuses_what_the_kernel_does_not_take(cuda):
                                                 "scale", "mask")],
             torch.from_numpy(c["row_ptr"]).to(cuda),
             torch.from_numpy(c["dst"]).to(cuda, torch.int64), heads=2)
+    # the two other rungs run their own kernels on the card; the span rung,
+    # where its bounds were measured, still raises
+    from gnnep_tpu_torch.ops.cuda import aggregate, attention
     conv = TransformerConv(16, 16, edge_dim=16).to(cuda)
     n_e = len(c["dst"])
     src_starts = torch.zeros(len(c["row_ptr"]) - 1, dtype=torch.int32,
                              device=cuda)
-    for fused, eproj in ((False, True), (True, False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer_conv_table(
-                conv.params(), q, torch.zeros(n_e, dtype=torch.long,
-                                              device=cuda),
-                torch.from_numpy(c["dst"]).to(cuda, torch.long),
-                torch.from_numpy(c["ea"]).to(cuda),
-                torch.from_numpy(c["row_ptr"]).to(cuda),
-                torch.arange(n_e, dtype=torch.int32, device=cuda), src_starts,
-                heads=2, attn_fused=fused, attn_eproj=eproj)
+
+    def run(**rung):
+        return transformer_conv_table(
+            conv.params(), q, torch.zeros(n_e, dtype=torch.long, device=cuda),
+            torch.from_numpy(c["dst"]).to(cuda, torch.long),
+            torch.from_numpy(c["ea"]).to(cuda),
+            torch.from_numpy(c["row_ptr"]).to(cuda),
+            torch.arange(n_e, dtype=torch.int32, device=cuda), src_starts,
+            heads=2, fused=True, **rung)
+
+    for rung, mod in (({"attn_fused": False}, aggregate),
+                      ({"attn_eproj": False}, attention)):
+        before = mod.launches
+        assert torch.isfinite(run(**rung)).all()
+        assert mod.launches == before + 1
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run(attn_span=True)

@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
     assert res.returncode == 0, res.stderr
     assert {"gnnep_tpu_torch.cli.predict", "gnnep_tpu_torch.cli.train",
             "gnnep_tpu_torch.train.member",
-            "gnnep_tpu_torch.ops.cuda.segment_sum"} <= set(mods)
+            "gnnep_tpu_torch.ops.cuda.segment_sum",
+            "gnnep_tpu_torch.ops.cuda.attention",
+            "gnnep_tpu_torch.ops.cuda.aggregate"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(

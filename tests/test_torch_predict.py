@@ -57,6 +57,50 @@ def ensemble_dir(tmp_path_factory):
     return root
 
 
+@pytest.mark.parametrize("rung", ["attn_fused", "attn_eproj"])
+def test_jax_member_on_a_rung_serves_on_it(ensemble_dir, tmp_path,
+                                           monkeypatch, rung):
+    """A member the JAX package trained on a rung (`conv_impl='fused'` and
+    `attn_fused=False` or `attn_eproj=False` in its config_json) loads in
+    the port with that rung, and the port's ensemble serves it through that
+    rung's own plain version (its kernels on the card), with the JAX
+    ensemble's predictions."""
+    from gnnep_tpu_torch.ops.cuda import aggregate, attention
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+
+    store = JStore.load_dir(ensemble_dir / "data", use_cache=False)
+    cfg = AlignnConfig(node_dim=store.node_dim, edge_dim=store.edge_dim,
+                       angle_dim=store.angle_dim,
+                       global_dim=store.global_scalar_dim + 230,
+                       target_dim=2, hidden=16, layers=1, heads=2,
+                       dropout=0.0, conv_impl="fused", **{rung: False})
+    ens = tmp_path / "ensemble"
+    ens.mkdir()
+    ja.save_member(ens / "model_0.npz",
+                   init_alignn(jax.random.PRNGKey(7), cfg), cfg)
+    (ens / "scaler_state.npz").write_bytes(
+        (ensemble_dir / "ensemble" / "scaler_state.npz").read_bytes())
+    p_ens = pp.Ensemble.load(ens, device="cpu")
+    assert getattr(p_ens.cfgs[0], rung) is False
+    assert p_ens.cfgs[0].conv_impl == "fused"
+    own = "aggregate_plain" if rung == "attn_fused" else "attention_plain"
+    reached = {}
+    for mod, fn in ((ep, "attention_eproj_plain"),
+                    (attention, "attention_plain"),
+                    (aggregate, "aggregate_plain")):
+        def counted(*a, _fn=fn, _real=getattr(mod, fn), **k):
+            reached[_fn] = reached.get(_fn, 0) + 1
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, fn, counted)
+    j_ens = jp.Ensemble.load(ens)
+    idx = list(range(N_GRAPHS))
+    want = j_ens.predict(j_ens.scaler.apply(store), idx, batch_size=4)
+    got = p_ens.predict(p_ens.scaler.apply(PStore.load_dir(
+        ensemble_dir / "data", use_cache=False)), idx, batch_size=4)
+    assert reached == {own: 2 * cfg.layers * 2}      # 2 batches of 4
+    _assert_results_close(got, want, rtol=1e-3)
+
+
 def _by_id(results):
     return {r["material_id"]: r for r in results}
 

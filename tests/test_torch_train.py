@@ -22,6 +22,8 @@ from gnnep_tpu.data.batching import BatchBudget, BatchPacker  # noqa: E402
 from gnnep_tpu.models import alignn as jm  # noqa: E402
 from gnnep_tpu.train import loop as jl  # noqa: E402
 from gnnep_tpu_torch.models import alignn as pm  # noqa: E402
+from gnnep_tpu_torch.ops.cuda import aggregate as ag  # noqa: E402
+from gnnep_tpu_torch.ops.cuda import attention as at  # noqa: E402
 from gnnep_tpu_torch.ops.cuda import attention_eproj as ep  # noqa: E402
 from gnnep_tpu_torch.ops.cuda import segment_sum as ss  # noqa: E402
 from gnnep_tpu_torch.train import artifacts as pa  # noqa: E402
@@ -59,15 +61,21 @@ def fixture():
     return dict(batch=batch, cfg=cfg, params=params, means=means, stds=stds)
 
 
-def _port_model(fx):
-    cfg = pm.AlignnConfig(**dataclasses.asdict(fx["cfg"]))
+def _port_model(fx, jcfg=None):
+    cfg = pm.AlignnConfig(**dataclasses.asdict(jcfg or fx["cfg"]))
     leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(fx["params"])]
     return pa.params_from_leaves(leaves, cfg)
 
 
-@pytest.mark.parametrize("optimizer", ["adamw", "adam"])
-def test_train_step_matches_jax(fixture, optimizer):
-    fx = fixture
+def _launches():
+    return (ep.launches, ep.bwd_launches, ag.launches, ag.bwd_launches,
+            at.launches, at.bwd_launches, ss.launches)
+
+
+def _step_parity(fx, jcfg, optimizer):
+    """One step of the JAX package's `make_train_step` (config `jcfg`) and of
+    the port's `TrainStep` from the same parameters and batch: loss, step
+    metrics, grads and updated params."""
     hyper_kw = dict(feature_jitter_std=0.0, optimizer=optimizer)
     jhyper = jl.TrainHyper(**hyper_kw)
     batch = fx["batch"]
@@ -76,26 +84,26 @@ def test_train_step_matches_jax(fixture, optimizer):
     jbatch = jax.tree.map(jnp.asarray, batch)
     key = jax.random.PRNGKey(1)
     (j_loss, _), j_grads = jax.value_and_grad(
-        lambda p: jl.hetero_nll(p, fx["cfg"], jhyper, jbatch, y_z, key,
+        lambda p: jl.hetero_nll(p, jcfg, jhyper, jbatch, y_z, key,
                                 train=True), has_aux=True)(fx["params"])
-    step, init_opt = jl.make_train_step(fx["cfg"], jhyper, fx["means"],
+    step, init_opt = jl.make_train_step(jcfg, jhyper, fx["means"],
                                         fx["stds"])
     params = jax.tree.map(jnp.array, fx["params"])
     new_params, _, j_m = step(params, init_opt(params),
                               jl.sigma_mask(params), jbatch, key, 1e-3, 5e-4)
 
-    model = _port_model(fx)
+    model = _port_model(fx, jcfg)
     train_step = pl.TrainStep(model, pl.TrainHyper(**hyper_kw), fx["means"],
                               fx["stds"])
     dbatch = pm.DeviceBatch.from_batch(batch, "cpu")
-    launches = (ep.launches, ep.bwd_launches, ss.launches)
+    launches = _launches()
     with torch.no_grad():
         y_z_t = pl.target_z(dbatch, train_step.mu, train_step.sd)
         p_loss, _ = pl.hetero_nll(model, train_step.hyper, dbatch, y_z_t,
                                   None, train=True)
     np.testing.assert_allclose(p_loss.item(), float(j_loss), rtol=RTOL)
     p_m = train_step(dbatch, torch.Generator().manual_seed(0), 1e-3, 5e-4)
-    assert (ep.launches, ep.bwd_launches, ss.launches) == launches
+    assert _launches() == launches
     for name, a, b in zip(pl.StepMetrics._fields, p_m, j_m):
         np.testing.assert_allclose(float(a), float(b), rtol=RTOL, atol=ATOL,
                                    err_msg=name)
@@ -109,6 +117,29 @@ def test_train_step_matches_jax(fixture, optimizer):
         np.testing.assert_allclose(got[name].detach().numpy(), np.asarray(p),
                                    rtol=RTOL, atol=ATOL,
                                    err_msg=f"param {name}")
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adam"])
+def test_train_step_matches_jax(fixture, optimizer):
+    _step_parity(fixture, fixture["cfg"], optimizer)
+
+
+@pytest.mark.parametrize("rung", ["attn_fused", "attn_eproj"])
+def test_train_step_matches_jax_on_rung(fixture, monkeypatch, rung):
+    """The external-logits rung (`attn_fused=False`, Pallas `_kernel` /
+    `_bwd_kernel` and the q gather's `csr_gather`) and the kv+e rung
+    (`attn_eproj=False`, `_attn_kernel` / `_attn_bwd_kernel`), both with
+    `conv_impl='fused', force_fused=True`, against the port's step on the
+    same rung, which reaches that rung's own backward."""
+    jcfg = dataclasses.replace(fixture["cfg"], **{rung: False})
+    mod, name = ((ag, "aggregate_bwd_plain") if rung == "attn_fused"
+                 else (at, "attention_bwd_plain"))
+    calls = []
+    real = getattr(mod, name)
+    monkeypatch.setattr(mod, name,
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    _step_parity(fixture, jcfg, "adamw")
+    assert len(calls) == 2 * jcfg.layers
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adam"])
