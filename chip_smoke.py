@@ -6,15 +6,18 @@
 Phases, each printing one line (a failure anywhere exits non-zero):
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
      TF32 off for matrix products and convolutions.
-  2. build: nvcc builds every kernel of the serving and training paths from
-     `csrc/` (one nvcc per source, all started together).
+  2. build: nvcc builds the ten CUDA sources of `csrc/` (one nvcc per
+     source, all started together).
   3. kernel: each kernel against its plain PyTorch version on the card, on
      small seeded edge cases and at the flagship conv shapes, f32 and bf16:
      the eproj forward (kernel 5) and backward (kernel 6), the CSR
      segment-sum (kernel 7, permuted and identity order), the kv+e
-     attention forward (kernel 3) and backward (kernel 4), and the
+     attention forward (kernel 3) and backward (kernel 4), the
      external-logits softmax-aggregate forward (kernel 1) and backward
-     (kernel 2). Dead rows of every backward must be exact zeros.
+     (kernel 2), and the span forward (kernel 8) and backward (kernel 9),
+     these two also against kernel 5 on the gathered kv and against kernel
+     6's dkv folded by kernel 7. Dead rows of every backward must be exact
+     zeros.
   4. serve: 256 synthetic MP-like graphs and a 5-member flagship ensemble
      (hidden 256, 4 layers, 4 heads, random weights from a seed) written to
      disk, then `gnnep_tpu_torch.cli.predict` in float32 and bfloat16; the
@@ -22,7 +25,11 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      means on the card match the CPU plain forward. The same for a
      2-member ensemble on each other rung (`conv_impl='fused'` with
      `attn_eproj=False`: kernel 3; with `attn_fused=False`: kernel 1), whose
-     convs never reach kernel 5.
+     convs never reach kernel 5. Then the span rung: member 0 under a
+     span config (`attn_span=True`, bounds from `measure_span64`) through
+     `make_forward` (kernel 8 2·layers times per forward, nothing else;
+     card vs CPU means), and saved with that config and served through
+     `cli.predict`, which repacks and so runs kernel 5, never kernel 8.
   5. train: `gnnep_tpu_torch.cli.train --conv-impl fused` on the same 256
      graphs at flagship width, 2 members in float32 and 1 in bfloat16; every
      step's loss is finite, kernels 6 and 7 ran 2·layers times per optimizer
@@ -31,15 +38,24 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      with `--no-attn-eproj` (kernels 4 and 7, 2·layers each per step) and
      with `--no-attn-fused` (kernel 2 2·layers, kernel 7 4·layers: the kv
      and the q gathers), the forward kernel 2·layers per train and eval
-     forward, kernels 5 and 6 never.
+     forward, kernels 5 and 6 never. Then `make_train_step` on the span
+     config for one epoch, f32 and bf16: kernels 8 and 9 2·layers times
+     per step, nothing else.
   6. check: one train step on the card against the CPU plain step from the
-     same parameters and batch, dropout and jitter off, on each rung.
+     same parameters and batch, dropout and jitter off, on each rung (span
+     included).
   7. times: CUDA events, warm-up first. A kernel's (and its plain
      version's) device time per launch is the median of 30 chains of 10
      back-to-back launches; its wall time per call, host work included, and
      the forward's and the train step's wall times (on each rung) are
      medians of 30 single calls. Profiler passes split the forward's and
      the train step's device time by kernel.
+  8. probes: the two dev probes as timing phases. The row gather (kernel
+     11) bitwise on every case of the JAX probe, timed beside
+     `torch.index_select`, also at the span kernels' own gather; the
+     ladder (kernel 10, kernel 5 cut short after each phase) at the
+     line-graph conv's shapes, its `full` stage bitwise kernel 5, device ms
+     per stage.
 
 The next-to-last line is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -161,31 +177,44 @@ def phase_device():
 
 
 # --------------------------------------------------------------- phase 2
+# the CUDA sources, one nvcc each
 KERNELS = ("attn_eproj_fwd", "attn_eproj_bwd", "csr_segment_sum",
            "attn_fwd", "attn_bwd", "softmax_aggregate_fwd",
-           "softmax_aggregate_bwd")
-# the TPU kernel each one replaces
-REPLACES = {"attn_eproj_fwd": "gnnep_tpu/ops/pallas/csr_attention.py:983",
-            "attn_eproj_bwd": "gnnep_tpu/ops/pallas/csr_attention.py:1065",
-            "csr_segment_sum": "gnnep_tpu/ops/pallas/csr_attention.py:1533",
-            "attn_fwd": "gnnep_tpu/ops/pallas/csr_attention.py:535",
-            "attn_bwd": "gnnep_tpu/ops/pallas/csr_attention.py:613",
-            "softmax_aggregate_fwd": "gnnep_tpu/ops/pallas/csr_attention.py:38",
-            "softmax_aggregate_bwd":
-                "gnnep_tpu/ops/pallas/csr_attention.py:189"}
-# each kernel's launch count: (module of gnnep_tpu_torch.ops.cuda, attribute)
-COUNTERS = {"attn_eproj_fwd": ("attention_eproj", "launches"),
-            "attn_eproj_bwd": ("attention_eproj", "bwd_launches"),
-            "csr_segment_sum": ("segment_sum", "launches"),
-            "attn_fwd": ("attention", "launches"),
-            "attn_bwd": ("attention", "bwd_launches"),
-            "softmax_aggregate_fwd": ("aggregate", "launches"),
-            "softmax_aggregate_bwd": ("aggregate", "bwd_launches")}
+           "softmax_aggregate_bwd", "attn_span_fwd", "attn_span_bwd",
+           "row_gather")
+_PALLAS = "gnnep_tpu/ops/pallas/csr_attention.py"
+# the TPU kernel each kernel replaces; the ladder is kernel 5's source with
+# its stage switch
+REPLACES = {"attn_eproj_fwd": f"{_PALLAS}:983",
+            "attn_eproj_bwd": f"{_PALLAS}:1065",
+            "csr_segment_sum": f"{_PALLAS}:1533",
+            "attn_fwd": f"{_PALLAS}:535",
+            "attn_bwd": f"{_PALLAS}:613",
+            "softmax_aggregate_fwd": f"{_PALLAS}:38",
+            "softmax_aggregate_bwd": f"{_PALLAS}:189",
+            "attn_span_fwd": f"{_PALLAS}:1726",
+            "attn_span_bwd": f"{_PALLAS}:1819",
+            "attn_eproj_ladder": "scripts_dev/exp_kernel_ladder.py:28",
+            "row_gather": "scripts_dev/exp_gather_probe.py:21"}
+SOURCES = {"attn_eproj_ladder": "attn_eproj_fwd"}
+# each kernel's launch count: (module, attribute)
+_OPS = "gnnep_tpu_torch.ops.cuda"
+COUNTERS = {"attn_eproj_fwd": (f"{_OPS}.attention_eproj", "launches"),
+            "attn_eproj_bwd": (f"{_OPS}.attention_eproj", "bwd_launches"),
+            "csr_segment_sum": (f"{_OPS}.segment_sum", "launches"),
+            "attn_fwd": (f"{_OPS}.attention", "launches"),
+            "attn_bwd": (f"{_OPS}.attention", "bwd_launches"),
+            "softmax_aggregate_fwd": (f"{_OPS}.aggregate", "launches"),
+            "softmax_aggregate_bwd": (f"{_OPS}.aggregate", "bwd_launches"),
+            "attn_span_fwd": (f"{_OPS}.attention_span", "launches"),
+            "attn_span_bwd": (f"{_OPS}.attention_span", "bwd_launches"),
+            "attn_eproj_ladder": ("gnnep_tpu_torch.dev.kernel_ladder",
+                                  "launches"),
+            "row_gather": ("gnnep_tpu_torch.dev.gather_probe", "launches")}
 
 
 def _counter_module(name: str):
-    return importlib.import_module(
-        f"gnnep_tpu_torch.ops.cuda.{COUNTERS[name][0]}")
+    return importlib.import_module(COUNTERS[name][0])
 
 
 def reset_counts() -> None:
@@ -212,6 +241,7 @@ def phase_build():
             m = re.search(r"\d+([a-z_]+_kernel)I(\w*?)EEv", line)
             if m:
                 args = (m.group(2).replace("13__nv_bfloat16", "bf16")
+                        .replace("Lb0E", ",false").replace("Lb1E", ",true")
                         .replace("Li", ",").replace("E", ""))
                 entry = f" {m.group(1)}<{args}>"
             elif "registers" in line or "spill" in line:
@@ -741,6 +771,199 @@ def phase_kernel_rungs(dev, batch):
     return flagship
 
 
+# ------------------------------------------------- phase 3, kernels 8 and 9
+def span_bounds(batches):
+    """(edge_span64, lg_span64): the largest span bounds `measure_span64`
+    gives over `batches`, for a span config that covers them all."""
+    from gnnep_tpu_torch.data.batching import measure_span64
+    spans = [measure_span64(np.asarray(b.node_graph), np.asarray(b.edge_dst),
+                            np.asarray(b.edge_mask), np.asarray(b.y).shape[0])
+             for b in batches]
+    return max(s[0] for s in spans), max(s[1] for s in spans)
+
+
+def span_small_case(rng, *, n, heads, hidden, fe, degs, dtype, device,
+                    interior_pad=0.0, dead_rows=(), scale=False):
+    """`eproj_case`'s arena (tail padding owned by the dummy row, masked
+    interior rows, all-masked and empty rows, a dropout scale) over a
+    node-space kv table of n + 7 rows: each live edge sources a row below
+    the table's last (the dummy source, whose kernel-7 fold is zeros), and
+    each dead edge carries a padding src far beyond the table, which the
+    kernels must never read. `src_plain` is the same with the dead edges'
+    src set to 0, for the plain versions' kvn[src]."""
+    import torch
+    c = eproj_case(rng, n=n, heads=heads, hidden=hidden, fe=fe, degs=degs,
+                   dtype=dtype, device=device, interior_pad=interior_pad,
+                   dead_rows=dead_rows, scale=scale)
+    n_src = n + 7
+    e_total = c["kv"].shape[0]
+    src = rng.integers(0, n_src - 1, e_total)
+    live = (c["mask2"] > 0).cpu().numpy()
+    c["kvn"] = torch.from_numpy(rng.normal(size=(n_src, 2 * hidden))).to(
+        device, dtype)
+    c["src"] = torch.from_numpy(np.where(live, src, n_src + 10 ** 6)).to(
+        device, torch.int64)
+    c["src_plain"] = torch.from_numpy(np.where(live, src, 0)).to(
+        device, torch.int64)
+    return c
+
+
+def span_batch_case(rng, batch, which, *, hidden, dtype, device):
+    """`batch_case` with the conv's node-space kv table and its src, from a
+    packed batch that carries span metadata."""
+    import torch
+    c = batch_case(rng, batch, which, hidden=hidden, dtype=dtype,
+                   device=device)
+    src = batch.lg_src if which == "lg" else batch.edge_src
+    n = c["q"].shape[0]
+    c["kvn"] = torch.from_numpy(rng.normal(size=(n, 2 * hidden))).to(
+        device, dtype)
+    c["src"] = c["src_plain"] = torch.from_numpy(
+        np.asarray(src, np.int64)).to(device)
+    return c
+
+
+def span_fwd_args(c):
+    return (c["q"], c["kvn"], c["ea"], c["w_edge"], c["scale_t"],
+            c["mask2"])
+
+
+def span_bwd_inputs(c, g_seed=0):
+    """Kernel 9's inputs: kernel 8's, a seeded f32 cotangent g and kernel
+    8's max and denom."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import attention_span as sp
+    _, mx, den = sp.attention_span_cuda(*span_fwd_args(c), c["row_ptr"],
+                                        c["src"], c["dst"],
+                                        heads=c["heads"])
+    gen = torch.Generator(device=c["q"].device).manual_seed(g_seed)
+    g = torch.randn(c["q"].shape, generator=gen, device=c["q"].device)
+    return g, mx, den
+
+
+def check_span_case(name, c, tol):
+    """Kernels 8 and 9 against their plain versions on the card, each
+    output within `tol` of the plain tensor's largest magnitude (no floor):
+    out and denom on the real rows, max so where a row has a live edge
+    (exactly −1e30 where it has none); dq on the real rows, dkvn on every
+    node row, dea on the live edges and dW_e in full, the dead edges' dea
+    rows and the dummy row's dq exact zeros. Then the cross-checks: kernel
+    8 against kernel 5 on kvn[src], and kernel 9's dkvn against kernel 6's
+    dkv folded into node space by kernel 7. Returns (forward's largest
+    absolute difference, backward's)."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+    from gnnep_tpu_torch.ops.cuda import attention_span as sp
+    from gnnep_tpu_torch.ops.cuda import segment_sum as ss
+    heads, n = c["heads"], c["q"].shape[0]
+    fwd = span_fwd_args(c)
+    kern = sp.attention_span_cuda(*fwd, c["row_ptr"], c["src"], c["dst"],
+                                  heads=heads)
+    torch.cuda.synchronize()
+    plain = sp.attention_span_plain(*fwd, c["src_plain"], c["dst"],
+                                    heads=heads)
+    errs, share = {}, 0.0
+    for what, a, b in zip(("out", "max", "denom"), kern, plain):
+        a, b = a[:-1].float(), b[:-1].float()
+        if what == "max":
+            dead = b <= 0.5 * NEG
+            if not (a[dead] == NEG).all():
+                raise AssertionError(f"attn_span_fwd {name}: max of a row "
+                                     "without a live edge is not -1e30")
+            a, b = a[~dead], b[~dead]
+        errs[what], sh = _within("attn_span_fwd", name, what, a, b, tol)
+        share = max(share, sh)
+    # kernel 8 is kernel 5 on the gathered arena
+    k5 = ep.attention_eproj_cuda(c["q"], c["kvn"][c["src_plain"]],
+                                 *fwd[2:], c["row_ptr"], c["dst"],
+                                 heads=heads)
+    bitwise = all(torch.equal(a[:-1], b[:-1]) for a, b in zip(kern, k5))
+    for what, a, b in zip(("out", "denom"), (kern[0], kern[2]),
+                          (k5[0], k5[2])):
+        _within("attn_span_fwd", f"{name} vs attn_eproj_fwd", what,
+                a[:-1], b[:-1], tol)
+    say("kernel", kernel="attn_span_fwd", case=name, tol_rel_to_max=tol,
+        **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
+        share_of_limit=f"{share:.3f}", bitwise_kernel5=bitwise)
+    fwd_err = errs["out"]
+
+    g, mx, den = span_bwd_inputs(c)
+    args = fwd + (c["row_ptr"],)
+    kern = sp.attention_span_bwd_cuda(*args, c["src"], c["dst"], g, mx, den,
+                                      heads=heads)
+    torch.cuda.synchronize()
+    plain = sp.attention_span_bwd_plain(*args, c["src_plain"], c["dst"], g,
+                                        mx, den, heads=heads)
+    live = (c["mask2"] > 0) & (c["dst"] != n - 1)
+    errs, share = {}, 0.0
+    for what, a, b in zip(("dq", "dkvn", "dea", "dw"), kern, plain):
+        a, b = a.float(), b.float()
+        if what == "dq":
+            if a[-1].any():
+                raise AssertionError(f"attn_span_bwd {name}: dq of the dummy "
+                                     "row is not zero")
+            a, b = a[:-1], b[:-1]
+        elif what == "dea":
+            if a[~live].any():
+                raise AssertionError(f"attn_span_bwd {name}: dea of dead "
+                                     "edges is not zero")
+            a, b = a[live], b[live]
+        errs[what], sh = _within("attn_span_bwd", name, what, a, b, tol)
+        share = max(share, sh)
+    # kernel 9's dkvn is kernel 6's dkv folded into node space by kernel 7
+    # over the source-sorted order, the eproj rung's own kv-gather backward
+    k6 = ep.attention_eproj_bwd_cuda(c["q"], c["kvn"][c["src_plain"]],
+                                     *fwd[2:], c["row_ptr"], c["dst"], g, mx,
+                                     den, heads=heads)
+    src = c["src_plain"]
+    order = torch.argsort(src, stable=True)
+    starts = torch.searchsorted(src[order], torch.arange(
+        c["kvn"].shape[0], device=src.device))
+    folded = ss.csr_segment_sum_cuda(k6[1], order.to(torch.int32),
+                                     starts.to(torch.int32))
+    _within("attn_span_bwd", f"{name} vs attn_eproj_bwd+csr_segment_sum",
+            "dkvn", kern[1].float(), folded.float(), tol)
+    for what, i in (("dq", 0), ("dea", 2), ("dw", 3)):
+        _within("attn_span_bwd", f"{name} vs attn_eproj_bwd", what,
+                kern[i].float(), k6[i].float(), tol)
+    say("kernel", kernel="attn_span_bwd", case=name, tol_rel_to_max=tol,
+        **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
+        share_of_limit=f"{share:.3f}")
+    return fwd_err, max(errs.values())
+
+
+def phase_kernel_span(dev, batch):
+    """Kernels 8 and 9 on small seeded edge cases (head widths 8, 64 and
+    96; interior padding, an all-masked row, empty rows, the dummy row's
+    tail, padding src values, a dropout scale) and at both convs' flagship
+    shapes of a packed training batch, f32 and bf16 → {kernel: {(conv,
+    dtype): (case, err)}}."""
+    import torch
+    rng = np.random.default_rng(SEED + 40)
+    flagship = {"attn_span_fwd": {}, "attn_span_bwd": {}}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        tag = "float32" if dtype == torch.float32 else "bfloat16"
+        small = [
+            ("small_ch8", dict(n=40, heads=2, hidden=16, fe=16,
+                               degs=rng.integers(0, 7, 40), interior_pad=0.2,
+                               dead_rows=(3,))),
+            ("long_rows_ch64", dict(n=24, heads=4, hidden=256, fe=256,
+                                    degs=rng.integers(10, 60, 24),
+                                    interior_pad=0.1, dead_rows=(5,))),
+            ("ch96", dict(n=16, heads=2, hidden=192, fe=32,
+                          degs=rng.integers(1, 20, 16), interior_pad=0.1))]
+        for name, kw in small:
+            check_span_case(f"{name}_{tag}", span_small_case(
+                rng, dtype=dtype, device=dev, scale=True, **kw), tol)
+        for which in ("lg", "atom"):
+            c = span_batch_case(rng, batch, which, hidden=256, dtype=dtype,
+                                device=dev)
+            errs = check_span_case(f"{which}_conv_{tag}", c, tol)
+            for kernel, err in zip(flagship, errs):
+                flagship[kernel][(which, tag)] = (c, err)
+    return flagship
+
+
 # --------------------------------------------------------------- phase 4
 def write_fixture(root: Path):
     """256 synthetic graphs and a 5-member flagship ensemble on disk."""
@@ -1048,6 +1271,127 @@ def phase_train_rung(root: Path, data: Path, layers: int, rung: str):
                 seconds=secs)
 
 
+def span_config(store_or_none, batches, **kw):
+    """The flagship config on the span rung (`conv_impl='fused'`,
+    `attn_span=True`) with the span bounds `measure_span64` gives over
+    `batches`, which `verify_win64` then holds them to; at the store's
+    feature widths where one is given."""
+    from gnnep_tpu_torch.data.batching import verify_win64
+    from gnnep_tpu_torch.utils.synth import flagship_config
+    nsp, bsp = span_bounds(batches)
+    dims = {} if store_or_none is None else dict(
+        node_dim=store_or_none.node_dim, edge_dim=store_or_none.edge_dim,
+        angle_dim=store_or_none.angle_dim,
+        global_dim=store_or_none.global_scalar_dim + 230)
+    cfg = flagship_config(conv_impl="fused", attn_span=True,
+                          edge_span64=nsp, lg_span64=bsp, **dims, **kw)
+    verify_win64(batches, cfg)
+    return cfg
+
+
+def _only(counts: dict, want: dict, what: str) -> None:
+    """Every kernel launched as `want` says, and no other."""
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)} ({counts})")
+
+
+def phase_span_forward(ens: Path, batches, dev):
+    """`make_forward` over the served batches, at flagship width, with
+    member 0's weights under a span config: kernel 8 2·layers times per
+    forward and nothing else, in f32 and bf16; member 0's f32 means on the
+    card against the CPU forward of the same member and config. Returns
+    the config and kernel 8's launches over the f32 forwards."""
+    import torch
+    from gnnep_tpu_torch.models.alignn import DeviceBatch
+    from gnnep_tpu_torch.train.artifacts import load_member
+    from gnnep_tpu_torch.train.loop import cast_model, make_forward, with_config
+    cfg = span_config(None, batches)
+    model = with_config(load_member(ens / "model_0.npz", dev), cfg)
+    dbs = [DeviceBatch.from_batch(b, dev) for b in batches]
+    for dtype in ("float32", "bfloat16"):
+        fwd, run = make_forward(compute_dtype=dtype), cast_model(model, dtype)
+        for i, db in enumerate(dbs):
+            reset_counts()
+            mean, logvar = fwd(run, db)
+            counts = read_counts()
+            _only(counts, {"attn_span_fwd": 2 * cfg.layers},
+                  f"span forward {dtype} batch {i}")
+            if not (torch.isfinite(mean).all() and torch.isfinite(logvar).all()):
+                raise AssertionError(f"span forward {dtype} batch {i}: "
+                                     "non-finite outputs")
+        say("span", forward=dtype, batches=len(dbs),
+            edge_span64=cfg.edge_span64, lg_span64=cfg.lg_span64,
+            attn_span_fwd_per_forward=2 * cfg.layers)
+    fwd = make_forward()
+    g_mean, _ = fwd(model, dbs[0])
+    cpu = with_config(load_member(ens / "model_0.npz", "cpu"), cfg)
+    c_mean, _ = fwd(cpu, DeviceBatch.from_batch(batches[0], "cpu"))
+    err = (g_mean.cpu() - c_mean).abs().max().item()
+    if not torch.allclose(g_mean.cpu(), c_mean, rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"span forward: member 0 means on the card "
+                             f"differ from the CPU forward by {err:.3e}")
+    say("span", check="member0_batch0_gpu_vs_cpu", rtol=1e-3, atol=1e-4,
+        max_abs_err=f"{err:.3e}")
+    return cfg, 2 * cfg.layers * len(dbs)
+
+
+def write_span_ensemble(root: Path, ens: Path, cfg) -> Path:
+    """Member 0 saved under the span config, with the scaler state."""
+    from gnnep_tpu_torch.train.artifacts import load_member, save_member
+    from gnnep_tpu_torch.train.loop import with_config
+    out = root / "ensemble_span"
+    out.mkdir()
+    save_member(out / "model_0.npz",
+                with_config(load_member(ens / "model_0.npz", "cpu"), cfg))
+    (out / "scaler_state.npz").write_bytes(
+        (ens / "scaler_state.npz").read_bytes())
+    return out
+
+
+def phase_span_train(setup, batches, dev):
+    """`make_train_step` on the span config for one epoch over the
+    trainer's batches, at flagship width, f32 and bf16, dropout and jitter
+    at the trainer's defaults: per optimizer step every loss finite and
+    kernels 8 and 9 2·layers times each, nothing else."""
+    import torch
+    from gnnep_tpu_torch.models.alignn import DeviceBatch, init_alignn
+    from gnnep_tpu_torch.train.loop import TrainHyper, make_train_step
+    cfg = span_config(setup.store, batches)
+    t = setup.transformer
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        step = make_train_step(init_alignn(np.random.default_rng(SEED + 5),
+                                           cfg),
+                               TrainHyper(compute_dtype=dtype), t.means,
+                               t.stds, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        losses = []
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches):
+            db = DeviceBatch.from_batch(b, dev)
+            reset_counts()
+            m = step(db, gen, 1e-4, 1e-4)
+            counts = read_counts()
+            _only(counts, {"attn_span_fwd": 2 * cfg.layers,
+                           "attn_span_bwd": 2 * cfg.layers},
+                  f"span train step {dtype} {i}")
+            losses.append(float(m.loss_sum))
+        secs = time.perf_counter() - t0
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"span train {dtype}: losses {losses}")
+        out[dtype] = dict(steps=len(losses), counts=dict(
+            attn_span_fwd=2 * cfg.layers * len(losses),
+            attn_span_bwd=2 * cfg.layers * len(losses)))
+        say("span", train=dtype, optimizer_steps=len(losses),
+            per_step="attn_span_fwd=%d,attn_span_bwd=%d" % (
+                2 * cfg.layers, 2 * cfg.layers),
+            loss_sum_first=f"{losses[0]:.4f}",
+            loss_sum_last=f"{losses[-1]:.4f}", seconds=f"{secs:.2f}")
+    return cfg, out
+
+
 # --------------------------------------------------------------- phase 6
 # the step's two LR groups differ, so that an update taken at the other
 # group's LR shows
@@ -1066,7 +1410,7 @@ def phase_check(setup, batches, dev, rung: str = "eproj"):
     """One train step on the card against the CPU plain step from the same
     parameters and batch, dropout and jitter off, at LRs 1e-3 / 5e-4, on
     `rung` (the card step launches that rung's forward and backward kernel
-    2·layers times each):
+    2·layers times each; on 'span' with the batch's measured bounds):
     - StepMetrics and every gradient element at rtol 5e-3 / atol 1e-4 (the
       JAX package's model gradient tolerance), and each leaf's gradient and
       Adam first moment within 5e-3 of that leaf's largest magnitude (plus
@@ -1087,6 +1431,11 @@ def phase_check(setup, batches, dev, rung: str = "eproj"):
     store = setup.store
     spec = RUNGS.get(rung, dict(cfg={}, fwd="attn_eproj_fwd",
                                 bwd="attn_eproj_bwd"))
+    if rung == "span":
+        nsp, bsp = span_bounds(batches[:1])
+        spec = dict(cfg=dict(attn_span=True, edge_span64=nsp,
+                             lg_span64=bsp),
+                    fwd="attn_span_fwd", bwd="attn_span_bwd")
     cfg = flagship_config(node_dim=store.node_dim, edge_dim=store.edge_dim,
                           angle_dim=store.angle_dim,
                           global_dim=store.global_scalar_dim + 230,
@@ -1388,6 +1737,167 @@ def phase_rung_times(rung_flag):
     return out
 
 
+def _unique_rows(idx) -> int:
+    import torch
+    return int(torch.unique(idx).numel())
+
+
+def span_bound_ms(c):
+    """Kernel 8: kernel 5's count (`eproj_bound_ms`) with the node table's
+    rows that live edges source, each read once, in place of the edge
+    arena's kv rows, and each live edge's src (8 bytes)."""
+    q, ea, w = c["q"], c["ea"], c["w_edge"]
+    n, hidden = q.shape
+    fe, heads, item = ea.shape[1], c["heads"], q.element_size()
+    live_e = c["mask2"] > 0
+    live = int(live_e.sum().item())
+    rows = _unique_rows(c["src"][live_e])
+    nbytes = (item * (q.numel() + rows * 2 * hidden + live * fe + w.numel())
+              + 8 * live
+              + 4 * (live * heads + c["mask2"].numel() + c["row_ptr"].numel())
+              + 4 * (n * hidden + 2 * n * heads))
+    ops = 2 * live * fe * hidden + 4 * live * hidden + 6 * live * heads
+    return _bound_ms(nbytes, ops, item)
+
+
+def span_bwd_bound_ms(c):
+    """Kernel 9: kernel 6's count (`eproj_bwd_bound_ms`) with the node
+    table's rows that live edges source read once in place of the edge
+    arena's kv rows, each live edge's src read, and dkvn [N_src, 2H] written
+    once in place of dkv [E, 2H]."""
+    q, ea, w = c["q"], c["ea"], c["w_edge"]
+    n, hidden = q.shape
+    fe, heads, item = ea.shape[1], c["heads"], q.element_size()
+    e_total, n_src = ea.shape[0], c["kvn"].shape[0]
+    live_e = (c["mask2"] > 0) & (c["dst"] != n - 1)
+    live = int(live_e.sum().item())
+    rows = _unique_rows(c["src"][live_e])
+    nbytes = (item * (q.numel() + rows * 2 * hidden + live * fe + w.numel())
+              + 8 * live
+              + 4 * (live * heads + c["mask2"].numel() + c["row_ptr"].numel())
+              + 4 * (n * hidden + 2 * n * heads)
+              + item * (n * hidden + n_src * 2 * hidden + e_total * fe)
+              + 4 * fe * hidden)
+    ops = 6 * live * fe * hidden + 12 * live * hidden + 10 * live * heads
+    return _bound_ms(nbytes, ops, item)
+
+
+def gather_bound_ms(c):
+    """Kernel 11: the output written once, each table row it needs read
+    once, the indices read once; no arithmetic."""
+    tab, idx = c["tab"], c["idx"]
+    row = tab.shape[1] * tab.element_size()
+    nbytes = (idx.numel() * row + _unique_rows(idx) * row
+              + idx.numel() * idx.element_size())
+    return _bound_ms(nbytes, 0, 4)
+
+
+def phase_span_times(span_flag):
+    """Kernels 8 and 9 at the flagship conv shapes → {kernel: cases}."""
+    from gnnep_tpu_torch.ops.cuda import attention_span as sp
+    fwd = kernel_times(
+        "attn_span_fwd", span_flag["attn_span_fwd"],
+        lambda c: sp.attention_span_cuda(*span_fwd_args(c), c["row_ptr"],
+                                         c["src"], c["dst"],
+                                         heads=c["heads"]),
+        lambda c: sp.attention_span_plain(*span_fwd_args(c), c["src_plain"],
+                                          c["dst"], heads=c["heads"]),
+        span_bound_ms)
+    args = {id(c): span_bwd_inputs(c)
+            for c, _ in span_flag["attn_span_bwd"].values()}
+    bwd = kernel_times(
+        "attn_span_bwd", span_flag["attn_span_bwd"],
+        lambda c: sp.attention_span_bwd_cuda(
+            *span_fwd_args(c), c["row_ptr"], c["src"], c["dst"],
+            *args[id(c)], heads=c["heads"]),
+        lambda c: sp.attention_span_bwd_plain(
+            *span_fwd_args(c), c["row_ptr"], c["src_plain"], c["dst"],
+            *args[id(c)], heads=c["heads"]),
+        span_bwd_bound_ms)
+    return {"attn_span_fwd": fwd, "attn_span_bwd": bwd}
+
+
+def phase_probes(dev, batch):
+    """The two dev probes as timing phases. Checks first, counted: the
+    gather kernel bitwise on every case of the JAX probe (S 256, 640, 768
+    × 512; f32, int32, bf16); each ladder stage launched at the line-graph
+    conv's flagship shapes in bf16 (the JAX ladder's type) and f32, `full`
+    bitwise kernel 5 on the same inputs. Then times: the gather's bench
+    cases (640 × 512) and the span kernels' own gather (the line-graph
+    conv's kvn [N, 2H] by src) beside `torch.index_select`; the ladder's
+    device ms per stage, its `full` stage as kernel 5's row → {kernel:
+    (cases, launches, extra)}."""
+    import torch
+    from gnnep_tpu_torch.dev import gather_probe as gp
+    from gnnep_tpu_torch.dev import kernel_ladder as kl
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+    reset_counts()
+    for dtype in gp.DTYPES:
+        for rows in gp.PROBE_ROWS:
+            if not gp.check_bitwise(gp.probe_case(rows, gp.WIDTH, dtype, dev)):
+                raise AssertionError(f"row_gather S={rows} {dtype}: not "
+                                     "bitwise tab[idx]")
+    ladder_flag = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "float32" if dtype == torch.float32 else "bfloat16"
+        c = kl.lg_case(batch, dtype=dtype, device=dev)
+        args = kl.case_args(c)
+        outs = {stage: kl.ladder_cuda(*args, heads=c["heads"], stage=stage)
+                for stage in kl.STAGES}
+        k5 = ep.attention_eproj_cuda(*args, heads=c["heads"])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(outs["full"], k5)):
+            raise AssertionError(f"ladder full {tag}: not bitwise kernel 5")
+        for stage, (out, _, _) in outs.items():
+            if not torch.isfinite(out[:-1]).all():
+                raise AssertionError(f"ladder {stage} {tag}: non-finite out")
+        plain = ep.attention_eproj_plain(*args[:6], c["dst"],
+                                         heads=c["heads"])
+        err = (outs["full"][0][:-1] - plain[0][:-1]).abs().max().item()
+        ladder_flag[("lg", tag)] = (c, err)
+    counts = read_counts()
+    _only(counts, {"row_gather": len(gp.DTYPES) * len(gp.PROBE_ROWS),
+                   "attn_eproj_ladder": 2 * len(kl.STAGES),
+                   "attn_eproj_fwd": 2}, "probe checks")
+    say("probe", gather_cases_bitwise=counts["row_gather"],
+        ladder_full_bitwise_kernel5="float32,bfloat16",
+        ladder_launches=counts["attn_eproj_ladder"])
+
+    stages = {}
+    for (which, tag), (c, _) in ladder_flag.items():
+        n_blocks = kl.blocks(c)
+        stages[tag] = kl.time_stages(c, timer=device_ms)
+        for stage, ms in stages[tag].items():
+            say("times", kernel="attn_eproj_ladder", conv=which, dtype=tag,
+                stage=stage, ms=f"{ms:.4f}",
+                us_per_block=f"{ms * 1e3 / n_blocks:.4f}", blocks=n_blocks)
+    ladder = kernel_times(
+        "attn_eproj_ladder", ladder_flag,
+        lambda c: kl.ladder_cuda(*kl.case_args(c), heads=c["heads"],
+                                 stage="full"),
+        lambda c: ep.attention_eproj_plain(*kl.case_args(c)[:6], c["dst"],
+                                           heads=c["heads"]),
+        eproj_bound_ms)
+    gather_flag = {("probe640", "float32"): (gp.probe_case(
+                       640, gp.WIDTH, torch.float32, dev), 0.0),
+                   ("probe640", "bfloat16"): (gp.probe_case(
+                       640, gp.WIDTH, torch.bfloat16, dev), 0.0)}
+    for dtype, tag in ((torch.float32, "float32"),
+                       (torch.bfloat16, "bfloat16")):
+        c = gp.span_case(batch, dtype=dtype, device=dev)
+        if not gp.check_bitwise(c):
+            raise AssertionError(f"row_gather span {tag}: not bitwise")
+        gather_flag[("lg", tag)] = (c, 0.0)
+    gather = kernel_times(
+        "row_gather", gather_flag,
+        lambda c: gp.row_gather_cuda(c["tab"], c["idx"]),
+        lambda c: gp.row_gather_plain(c["tab"], c["idx"]), gather_bound_ms,
+        library=lambda c: torch.index_select(c["tab"], 0, c["idx"]))
+    return {"attn_eproj_ladder": (ladder, counts["attn_eproj_ladder"],
+                                  {"stages_ms": stages}),
+            "row_gather": (gather, counts["row_gather"], {})}
+
+
 def kernel_times(name, flagship, run_kernel, run_plain, bound_fn,
                  library=None):
     """Device ms per launch, wall ms per call with host work, plain ms and
@@ -1415,7 +1925,9 @@ def kernel_times(name, flagship, run_kernel, run_plain, bound_fn,
 
 def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
     """Kernels 6 and 7 at the flagship shapes, then the train step's wall
-    time per step (batches already on the card) and its profile."""
+    time per step (batches already on the card) and its profile, on each
+    rung; the span rung's beside the default's is the counterpart of
+    `scripts_dev/exp_span.py`'s A/B."""
     import torch
     from gnnep_tpu_torch.models.alignn import DeviceBatch, init_alignn
     from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
@@ -1456,12 +1968,15 @@ def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
     dbs = [DeviceBatch.from_batch(b, dev) for b in full]
     real = [BATCH] * len(full)
     steps = {}
-    for rung in ("eproj", *RUNGS):
+    nsp, bsp = span_bounds(full)
+    for rung in ("eproj", *RUNGS, "span"):
+        rung_cfg = (dict(attn_span=True, edge_span64=nsp, lg_span64=bsp)
+                    if rung == "span" else RUNGS.get(rung, {"cfg": {}})["cfg"])
         cfg = flagship_config(node_dim=store.node_dim,
                               edge_dim=store.edge_dim,
                               angle_dim=store.angle_dim,
                               global_dim=store.global_scalar_dim + 230,
-                              **RUNGS.get(rung, {"cfg": {}})["cfg"])
+                              **rung_cfg)
         steps[rung] = {}
         for dtype in ("float32", "bfloat16"):
             step = make_train_step(
@@ -1549,6 +2064,7 @@ def main() -> int:
         bwd_flag = phase_kernel_bwd(dev, train_batches[0])
         seg_flag = phase_kernel_segsum(dev, train_batches[0])
         rung_flag = phase_kernel_rungs(dev, train_batches[0])
+        span_flag = phase_kernel_span(dev, train_batches[0])
         launches = phase_serve(root, data, ens, cfg, batches, dev)
         rung_serve = {
             rung: phase_serve(root, data,
@@ -1559,12 +2075,20 @@ def main() -> int:
         runs = phase_train(root, data, cfg.layers)
         rung_train = {rung: phase_train_rung(root, data, cfg.layers, rung)
                       for rung in RUNGS}
-        for rung in ("eproj", *RUNGS):
+        span_cfg, span_forwards = phase_span_forward(ens, batches, dev)
+        span_serve = phase_serve(root, data,
+                                 write_span_ensemble(root, ens, span_cfg),
+                                 cfg, batches, dev, members=1,
+                                 kernel="attn_eproj_fwd", tag="_span")
+        _, span_train = phase_span_train(setup, train_batches, dev)
+        for rung in ("eproj", *RUNGS, "span"):
             phase_check(setup, train_batches, dev, rung)
         cases = phase_times(flagship, batches, ens, dev)
         rung_cases = phase_rung_times(rung_flag)
+        span_cases = phase_span_times(span_flag)
         bwd_cases, seg_cases, step_times = phase_train_times(
             bwd_flag, seg_flag, setup, train_batches, dev)
+        probes = phase_probes(dev, train_batches[0])
 
     def head(recs):
         return next(c for c in recs
@@ -1573,7 +2097,7 @@ def main() -> int:
     def record(name, recs, launches_f32, launches_bf16, path):
         h = head(recs)
         return {"name": name, "route": "cuda",
-                "source": f"gnnep_tpu_torch/csrc/{name}.cu",
+                "source": f"gnnep_tpu_torch/csrc/{SOURCES.get(name, name)}.cu",
                 "replaces": REPLACES[name],
                 # the f32 run's count; the bf16 run's, counted alone, beside
                 "launches": launches_f32, "launches_bfloat16": launches_bf16,
@@ -1601,6 +2125,15 @@ def main() -> int:
         kernels += [fwd, record(spec["bwd"], rung_cases[spec["bwd"]],
                                 rung_train[rung]["counts"][spec["bwd"]], None,
                                 f"train_{rung}")]
+    for name in ("attn_span_fwd", "attn_span_bwd"):
+        rec = record(name, span_cases[name],
+                     span_train["float32"]["counts"][name],
+                     span_train["bfloat16"]["counts"][name], "train_span")
+        if name == "attn_span_fwd":
+            rec["launches_forward"] = span_forwards
+        kernels.append(rec)
+    for name, (recs, n, extra) in probes.items():
+        kernels.append({**record(name, recs, n, None, "probe"), **extra})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "train": {
         d: {"optimizer_steps": r["steps"], "cli_seconds": r["seconds"],
@@ -1609,7 +2142,13 @@ def main() -> int:
             rung: {"optimizer_steps": r["steps"], "cli_seconds": r["seconds"],
                    "eval_forwards": r["eval_forwards"],
                    "step_times": step_times[rung]}
-            for rung, r in rung_train.items()}}), flush=True)
+            for rung, r in rung_train.items()},
+        "span": {"edge_span64": span_cfg.edge_span64,
+                 "lg_span64": span_cfg.lg_span64,
+                 "serve_launches_attn_eproj_fwd": span_serve,
+                 "train": {d: {"optimizer_steps": r["steps"],
+                               **step_times["span"][d]}
+                           for d, r in span_train.items()}}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

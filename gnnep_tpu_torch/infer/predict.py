@@ -28,7 +28,7 @@ from ..models.alignn import Alignn
 from ..train.artifacts import load_member, load_scaler_state, member_paths
 from ..train.calibrate import ensemble_mixture
 from ..train.loop import (MIN_LOGVAR_FLOOR, cast_model, collect_predictions,
-                          make_forward, reconcile_win64)
+                          make_forward, reconcile_win64, with_config)
 from ..utils.device import resolve_device
 
 Z_SCORE_90 = 1.6449  # Φ⁻¹(0.95)
@@ -88,12 +88,14 @@ class Ensemble:
         member_means, member_vars = [], []
         order = ys = None
         for i, model in enumerate(self.members):
-            # checkpoint window bounds are training-time; these batches were
-            # packed to a fresh budget (the JAX package's contract)
+            # checkpoint window and span bounds are training-time; these
+            # batches were packed to a fresh budget, and the member runs
+            # under the reconciled config (the JAX package's contract: a
+            # span member serves on the eproj rung)
             cfg = reconcile_win64(model.cfg, budget)
             if i == 0:
                 verify_win64(batches, cfg)
-            run = cast_model(model, compute_dtype)
+            run = with_config(cast_model(model, compute_dtype), cfg)
             mean_z, sigma_z, ys, order = collect_predictions(
                 forward, run, batches, self.device)
             member_means.append(mean_z)

@@ -42,8 +42,8 @@ class AlignnConfig:
     """The JAX package's `AlignnConfig`, field for field, so the config JSON
     embedded in a checkpoint round-trips between the packages. The win64
     and `scan_layers` fields are TPU kernel and compile choices; the port
-    carries them and does not read them. It reads the span fields only to
-    refuse the span rung on the card."""
+    carries them and does not read them. Of the span bounds it reads only
+    whether they were measured (> 0)."""
 
     node_dim: int
     edge_dim: int
@@ -65,8 +65,9 @@ class AlignnConfig:
     scan_layers: bool = False
     # fused-kernel ladder, read only under conv_impl='fused' (as the JAX
     # package reads it): attn_fused=False is the external-logits rung,
-    # attn_eproj=False the kv+e rung, both with CUDA kernels; attn_span with
-    # measured span bounds has none yet and raises on the card
+    # attn_eproj=False the kv+e rung; attn_span with a conv's bound measured
+    # (`data.batching.measure_span64`) is the span rung on that conv, where
+    # the batch carries its span_lo; each rung has its CUDA kernels
     attn_fused: bool = True
     attn_eproj: bool = True
     force_fused: bool = False
@@ -226,7 +227,8 @@ def _dropout(x: torch.Tensor, rate: float,
 class DeviceBatch:
     """The fields of a `GraphBatch` that the forwards and the loss read, as
     tensors on one device: features, targets and masks f32, index arrays
-    int64, CSR pointers and the source-sorted CSR index int32."""
+    int64, CSR pointers, the source-sorted CSR index and the span starts
+    int32 (the span starts None where the `GraphBatch` has none)."""
 
     nodes: torch.Tensor
     node_graph: torch.Tensor
@@ -251,6 +253,8 @@ class DeviceBatch:
     weight: torch.Tensor
     graph_mask: torch.Tensor
     n_graphs: int
+    node_span_lo: Optional[torch.Tensor] = None
+    bond_span_lo: Optional[torch.Tensor] = None
 
     _FLOAT = ("nodes", "edge_attr", "edge_mask", "lg_attr", "lg_mask",
               "globals_", "y", "y_mask", "weight", "graph_mask")
@@ -258,6 +262,7 @@ class DeviceBatch:
               "sg_num")
     _INT32 = ("edge_row_ptr", "lg_row_ptr", "edge_src_order",
               "edge_src_starts", "lg_src_order", "lg_src_starts")
+    _SPAN = ("node_span_lo", "bond_span_lo")
 
     @classmethod
     def from_batch(cls, batch, device) -> "DeviceBatch":
@@ -268,6 +273,8 @@ class DeviceBatch:
         fields = {n: put(n, np.float32) for n in cls._FLOAT}
         fields.update({n: put(n, np.int64) for n in cls._INDEX})
         fields.update({n: put(n, np.int32) for n in cls._INT32})
+        fields.update({n: put(n, np.int32) for n in cls._SPAN
+                       if getattr(batch, n, None) is not None})
         return cls(**fields, n_graphs=int(np.asarray(batch.y).shape[0]))
 
 
@@ -319,14 +326,16 @@ def _shared_trunk(model: Alignn, batch: DeviceBatch,
                 conv.params(), state, batch.lg_src, batch.lg_dst, feats,
                 batch.lg_row_ptr, batch.lg_src_order, batch.lg_src_starts,
                 edge_mask=batch.lg_mask,
-                attn_span=cfg.attn_span and cfg.lg_span64 > 0, **rung)
+                attn_span=cfg.attn_span and cfg.lg_span64 > 0,
+                span_lo=batch.bond_span_lo, **rung)
 
         def atom_conv(conv, state, feats):
             return transformer_conv_table(
                 conv.params(), state, batch.edge_src, batch.edge_dst, feats,
                 batch.edge_row_ptr, batch.edge_src_order,
                 batch.edge_src_starts, edge_mask=batch.edge_mask,
-                attn_span=cfg.attn_span and cfg.edge_span64 > 0, **rung)
+                attn_span=cfg.attn_span and cfg.edge_span64 > 0,
+                span_lo=batch.node_span_lo, **rung)
 
     for li, (eb, nb) in enumerate(zip(model.edge_blocks, model.node_blocks)):
         # EdgeUpdate: line-graph conv with angle features

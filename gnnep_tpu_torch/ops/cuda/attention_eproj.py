@@ -117,11 +117,12 @@ def bwd_rows_per_block(n: int, heads: int, device: torch.device) -> int:
 
 
 def _check_inputs(q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, *, heads,
-                  extra=()):
+                  extra=(), node_kv=False):
     """Raise on anything the kernels do not take. `extra` are further
-    (name, tensor, dtype, shape) float inputs of the backward."""
+    (name, tensor, dtype, shape) inputs; `node_kv`: kv is a node-space table
+    [N_src, 2H] (the span kernels'), not an edge arena [E, 2H]."""
     n, hidden = q.shape[0], q.shape[1] if q.dim() == 2 else -1
-    e_total = kv.shape[0]
+    e_total = ea.shape[0] if node_kv and ea.dim() == 2 else kv.shape[0]
     fe = ea.shape[1] if ea.dim() == 2 else -1
     tensors = dict(q=q, kv=kv, ea=ea, w_edge=w_edge, scale_t=scale_t,
                    mask2=mask2, row_ptr=row_ptr, dst=dst)
@@ -141,8 +142,10 @@ def _check_inputs(q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, *, heads,
     ch = hidden // heads if heads > 0 else 0
     bad_extra = [name for name, t, dtype, shape in extra
                  if t.dtype != dtype or tuple(t.shape) != shape]
+    kv_rows = kv.shape[0] if node_kv else e_total
     if (q.dim() != 2 or heads <= 0 or hidden % heads or ch > 128
-            or tuple(kv.shape) != (e_total, 2 * hidden)
+            or tuple(kv.shape) != (kv_rows, 2 * hidden)
+            or kv_rows >= 2 ** 31 - 1
             or ea.dim() != 2 or ea.shape[0] != e_total
             or tuple(w_edge.shape) != (fe, hidden)
             or tuple(scale_t.shape) != (heads, e_total)

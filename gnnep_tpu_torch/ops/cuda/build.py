@@ -2,15 +2,17 @@
 
 Each `csrc/<name>.cu` compiles with nvcc into
 `build/kernels/lib<name>-<hash>.so` inside this package (the hash covers the
-source and the flags, so an edited source rebuilds) at its first use, and
-loads with ctypes. Nothing builds when a module is imported: the CPU tests
-import every module, and the CPU has no nvcc.
+source, the `csrc/` headers it includes and the flags, so an edited source
+or header rebuilds) at its first use, and loads with ctypes. Nothing builds
+when a module is imported: the CPU tests import every module, and the CPU
+has no nvcc.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,10 +48,25 @@ def nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: Dict[Path, bytes]) -> Dict[Path, bytes]:
+    """`path` and every header it includes with quotes, recursively, from
+    `csrc/`, each once."""
+    if path not in seen:
+        seen[path] = path.read_bytes()
+        for name in _INCLUDE.findall(seen[path]):
+            _sources(CSRC / name.decode(), seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:12]
+    """The library's path, tagged with a hash of the source, the headers it
+    includes and the flags, so that an edited header rebuilds too."""
+    parts = _sources(CSRC / f"{name}.cu", {})
+    tag = hashlib.sha256(b"".join(parts.values())
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{tag}.so"
 
 

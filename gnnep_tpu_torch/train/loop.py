@@ -326,11 +326,23 @@ def collect_predictions(forward, model: Alignn, batches: Sequence, device
             np.concatenate(ys), np.concatenate(idxs))
 
 
+def with_config(model: Alignn, cfg: AlignnConfig) -> Alignn:
+    """The member's forward under `cfg`: a shallow copy sharing its
+    parameters (the member itself where `cfg` is its own), as the JAX
+    package runs a member's parameters under a reconciled config."""
+    if cfg == model.cfg:
+        return model
+    run = copy.copy(model)
+    run.cfg = cfg
+    return run
+
+
 def reconcile_win64(cfg: AlignnConfig, budget) -> AlignnConfig:
     """The checkpoint config with its packer window bounds replaced by the
     active batch budget's, and the span bounds cleared, as the JAX package
-    does before every eval forward (those bounds size the TPU kernels'
-    windows; the CUDA kernel reads whole CSR ranges and needs none)."""
+    does before every eval forward (the window bounds size the TPU kernels'
+    windows, which the CUDA kernels do not have; clearing the span bounds
+    turns the span rung into the eproj rung on an eval-time repack)."""
     return dataclasses.replace(
         cfg,
         edge_win64=int(budget.edge_win64), lg_win64=int(budget.lg_win64),

@@ -12,7 +12,9 @@ from typing import List
 
 import numpy as np
 
+from ..data.batching import BatchBudget, epoch_batches
 from ..data.featurize import GraphSample
+from ..data.store import GraphStore
 from ..models.alignn import AlignnConfig
 
 NODE_DIM, EDGE_DIM, ANGLE_DIM, GLOBAL_DIM = 206, 36, 11, 59
@@ -63,3 +65,15 @@ def flagship_config(**kw) -> AlignnConfig:
                 layers=4, heads=4, dropout=0.15, conv_impl="fused")
     base.update(kw)
     return AlignnConfig(**base)
+
+
+def flagship_batch(seed: int = 0, n_graphs: int = 256, batch_size: int = 64):
+    """The first batch of `batch_size` graphs, packed under a budget planned
+    over `n_graphs` synthetic graphs (as a served request packs them): at
+    the defaults about 768 atom rows, 7,552 bond rows and 74,880 line-graph
+    rows, the flagship conv shapes."""
+    store = GraphStore.from_samples(
+        synthetic_samples(np.random.default_rng(seed), n_graphs))
+    idx = list(range(n_graphs))
+    budget = BatchBudget.plan(store, idx, batch_size, cover_all=True)
+    return epoch_batches(store, idx[:batch_size], budget, shuffle=False)[0]

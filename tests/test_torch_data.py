@@ -112,3 +112,26 @@ def test_scaler_and_log_transform_round_trips():
     assert np.array_equal(z, jlt.transform(y))
     assert np.array_equal(plt2.inverse(z), jlt.inverse(z))
     np.testing.assert_allclose(plt2.inverse(z), y, rtol=1e-5)
+
+
+def test_device_batch_carries_span_starts():
+    """The span rung's per-target span starts reach the device array-equal
+    to the JAX packer's, int32, and stay None where a batch has none."""
+    torch = pytest.importorskip("torch")
+    from gnnep_tpu_torch.models.alignn import DeviceBatch
+
+    jstore, pstore = _stores("port_synthetic")
+    idx = range(jstore.n_graphs)
+    jbud = jb.BatchBudget.plan(jstore, idx, 5)
+    pbud = pb.BatchBudget.plan(pstore, idx, 5)
+    jbatches = jb.epoch_batches(jstore, idx, jbud, shuffle=False)
+    pbatches = pb.epoch_batches(pstore, idx, pbud, shuffle=False)
+    for a, b in zip(jbatches, pbatches):
+        d = DeviceBatch.from_batch(b, "cpu")
+        for name in ("node_span_lo", "bond_span_lo"):
+            t = getattr(d, name)
+            assert t.dtype == torch.int32, name
+            assert np.array_equal(t.numpy(), getattr(a, name)), name
+    bare = DeviceBatch.from_batch(
+        pbatches[0]._replace(node_span_lo=None, bond_span_lo=None), "cpu")
+    assert bare.node_span_lo is None and bare.bond_span_lo is None

@@ -210,9 +210,10 @@ def test_card_refuses_what_the_kernel_does_not_take(cuda):
                                                 "scale", "mask")],
             torch.from_numpy(c["row_ptr"]).to(cuda),
             torch.from_numpy(c["dst"]).to(cuda, torch.int64), heads=2)
-    # the two other rungs run their own kernels on the card; the span rung,
-    # where its bounds were measured, still raises
+    # each other rung runs its own kernel on the card: the span rung (its
+    # bounds measured and the batch's span_lo given) too
     from gnnep_tpu_torch.ops.cuda import aggregate, attention
+    from gnnep_tpu_torch.ops.cuda import attention_span
     conv = TransformerConv(16, 16, edge_dim=16).to(cuda)
     n_e = len(c["dst"])
     src_starts = torch.zeros(len(c["row_ptr"]) - 1, dtype=torch.int32,
@@ -227,10 +228,12 @@ def test_card_refuses_what_the_kernel_does_not_take(cuda):
             torch.arange(n_e, dtype=torch.int32, device=cuda), src_starts,
             heads=2, fused=True, **rung)
 
+    span_lo = torch.zeros(len(c["row_ptr"]) - 1, dtype=torch.int32,
+                          device=cuda)
     for rung, mod in (({"attn_fused": False}, aggregate),
-                      ({"attn_eproj": False}, attention)):
+                      ({"attn_eproj": False}, attention),
+                      ({"attn_span": True, "span_lo": span_lo},
+                       attention_span)):
         before = mod.launches
         assert torch.isfinite(run(**rung)).all()
         assert mod.launches == before + 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(attn_span=True)

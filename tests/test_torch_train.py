@@ -18,13 +18,17 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
 from synthetic import make_store  # noqa: E402
 
-from gnnep_tpu.data.batching import BatchBudget, BatchPacker  # noqa: E402
+from gnnep_tpu.data.batching import (BatchBudget, BatchPacker,  # noqa: E402
+                                     measure_span64)
 from gnnep_tpu.models import alignn as jm  # noqa: E402
+from gnnep_tpu.ops.pallas import csr_attention as jmod  # noqa: E402
 from gnnep_tpu.train import loop as jl  # noqa: E402
 from gnnep_tpu_torch.models import alignn as pm  # noqa: E402
+from gnnep_tpu_torch.ops import dense_attention as pda  # noqa: E402
 from gnnep_tpu_torch.ops.cuda import aggregate as ag  # noqa: E402
 from gnnep_tpu_torch.ops.cuda import attention as at  # noqa: E402
 from gnnep_tpu_torch.ops.cuda import attention_eproj as ep  # noqa: E402
+from gnnep_tpu_torch.ops.cuda import attention_span as sp  # noqa: E402
 from gnnep_tpu_torch.ops.cuda import segment_sum as ss  # noqa: E402
 from gnnep_tpu_torch.train import artifacts as pa  # noqa: E402
 from gnnep_tpu_torch.train import loop as pl  # noqa: E402
@@ -69,7 +73,8 @@ def _port_model(fx, jcfg=None):
 
 def _launches():
     return (ep.launches, ep.bwd_launches, ag.launches, ag.bwd_launches,
-            at.launches, at.bwd_launches, ss.launches)
+            at.launches, at.bwd_launches, ss.launches, sp.launches,
+            sp.bwd_launches)
 
 
 def _step_parity(fx, jcfg, optimizer):
@@ -140,6 +145,43 @@ def test_train_step_matches_jax_on_rung(fixture, monkeypatch, rung):
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     _step_parity(fixture, jcfg, "adamw")
     assert len(calls) == 2 * jcfg.layers
+
+
+def test_train_step_matches_jax_on_span_rung(fixture, monkeypatch):
+    """The span rung (`conv_impl='fused', force_fused=True, attn_span=True`
+    with the bounds `measure_span64` gives on the fixture's batch) against
+    the port's step on it. The JAX side really runs `fused_attention_span`:
+    its preconditions (csr_attention.py:2193) hold at this size, where the
+    bounds are 128 rows each within 128- and 256-row arenas. The port runs
+    the span plain versions in every conv and gathers no edge-space kv."""
+    batch = fixture["batch"]
+    nsp, bsp = measure_span64(np.asarray(batch.node_graph),
+                              np.asarray(batch.edge_dst),
+                              np.asarray(batch.edge_mask), batch.y.shape[0])
+    assert 0 < nsp <= batch.nodes.shape[0] and 0 < bsp <= \
+        batch.edge_src.shape[0]
+    jcfg = dataclasses.replace(fixture["cfg"], attn_span=True,
+                               edge_span64=nsp, lg_span64=bsp)
+    calls = {}
+    for mod, name in ((jmod, "fused_attention_span"),
+                      (sp, "attention_span_plain"),
+                      (sp, "attention_span_bwd_plain")):
+        def counted(*a, _name=name, _real=getattr(mod, name), **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+
+    def refuse(*a, **k):
+        raise AssertionError("the span rung gathered an edge-space kv")
+
+    monkeypatch.setattr(pda, "csr_gather_ordered", refuse)
+    _step_parity(fixture, jcfg, "adamw")
+    layers = jcfg.layers
+    # JAX traces the loss and the jitted step once each; the port's
+    # forward runs in its loss check and in the step
+    assert calls["fused_attention_span"] >= 2 * layers
+    assert (calls["attention_span_plain"],
+            calls["attention_span_bwd_plain"]) == (4 * layers, 2 * layers)
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adam"])
