@@ -7,7 +7,9 @@ Phases, each printing one line (a failure anywhere exits non-zero):
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
      TF32 off for matrix products and convolutions.
   2. build: nvcc builds the ten CUDA sources of `csrc/` (one nvcc per
-     source, all started together).
+     source, all started together) and prints each kernel's registers and
+     spills; `cuobjdump` counts the tensor-core instructions (HGMMA, HMMA)
+     of kernels 6 and 9, which must have some in every product kernel.
   3. kernel: each kernel against its plain PyTorch version on the card, on
      small seeded edge cases and at the flagship conv shapes, f32 and bf16:
      the eproj forward (kernel 5) and backward (kernel 6), the CSR
@@ -17,7 +19,10 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      (kernel 2), and the span forward (kernel 8) and backward (kernel 9),
      these two also against kernel 5 on the gathered kv and against kernel
      6's dkv folded by kernel 7. Dead rows of every backward must be exact
-     zeros.
+     zeros. Kernels 6 and 9 also on the shapes their tiling must take (a
+     1,200-edge hub, a tile of dead edges, Fe 36, E not a multiple of 64,
+     head widths 8, 64 and 96), and in f32 at the line-graph conv against
+     a float64 reference beside the plain f32 version's own error.
   4. serve: 256 synthetic MP-like graphs and a 5-member flagship ensemble
      (hidden 256, 4 layers, 4 heads, random weights from a seed) written to
      disk, then `gnnep_tpu_torch.cli.predict` in float32 and bfloat16; the
@@ -48,7 +53,9 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      version's) device time per launch is the median of 30 chains of 10
      back-to-back launches; its wall time per call, host work included, and
      the forward's and the train step's wall times (on each rung) are
-     medians of 30 single calls. Profiler passes split the forward's and
+     medians of 30 single calls. Kernels 6 and 9 also by CUDA kernel
+     (torch.profiler), beside their three products as `torch.matmul` calls
+     (a diagnostic floor the port never calls). Profiler passes split the forward's and
      the train step's device time by kernel.
   8. probes: the two dev probes as timing phases. The row gather (kernel
      11) bitwise on every case of the JAX probe, timed beside
@@ -246,6 +253,23 @@ def phase_build():
                 entry = f" {m.group(1)}<{args}>"
             elif "registers" in line or "spill" in line:
                 print(f"  {name}{entry}: {line.strip()}", flush=True)
+    sass_tensor_cores()
+
+
+def sass_tensor_cores():
+    """Tensor-core (HGMMA, HMMA) and FFMA instructions of each kernel of
+    kernels 6 and 9, from `cuobjdump --dump-sass` of the built libraries;
+    fails unless every product kernel has tensor-core instructions in both
+    types (bf16 mma, and 3xTF32 in f32)."""
+    from gnnep_tpu_torch.dev.bwd_bench import sass_counts
+    for name in ("attn_eproj_bwd", "attn_span_bwd"):
+        for func, counts in sass_counts(name).items():
+            say("sass", kernel=name, function=func,
+                **{op: n for op, n in counts.items()})
+            if "cast_kernel" not in func and not (counts["HGMMA"]
+                                                  + counts["HMMA"]):
+                raise AssertionError(f"{name} {func}: no tensor-core "
+                                     "instruction in its SASS")
 
 
 # --------------------------------------------------------------- phase 3
@@ -440,14 +464,61 @@ def check_bwd_case(name, case, tol):
     return max(errs.values())
 
 
+def odd_cases(rng):
+    """Kernel 6 and 9's shapes for the tiling of `attn_eproj_bwd.cuh`, each
+    (name, eproj_case keywords): a hub target of 1,200 in-edges (across
+    64-edge chunks, 32-edge slices and tile boundaries), a run of 20
+    ten-edge targets all masked (longer than a tile's share, so some tile
+    holds only dead edges), E not a multiple of 64, Fe 36 (not a multiple
+    of 16) and head widths 64, 8 and 96."""
+    out = []
+    for name, heads, hidden, fe in (("hub_fe36_ch64", 4, 256, 36),
+                                    ("hub_ch8", 2, 16, 16),
+                                    ("hub_fe36_ch96", 2, 192, 36)):
+        n = 120
+        degs = rng.integers(0, 12, n)
+        degs[n // 3] = 1200
+        degs[n // 2:n // 2 + 20] = 10
+        degs[-1] = 0
+        if (degs.sum() + 16) % 64 == 0:
+            degs[0] += 1
+        out.append((name, dict(n=n, heads=heads, hidden=hidden, fe=fe,
+                               degs=degs, interior_pad=0.1,
+                               dead_rows=tuple(range(n // 2, n // 2 + 20)))))
+    return out
+
+
+def check_odd_tiling(name, case):
+    """The case has E not a multiple of 64 and a tile (as the wrappers cut
+    them on this card) whose edges are all dead."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+    n, e_total = case["q"].shape[0], case["mask2"].shape[0]
+    sms = torch.cuda.get_device_properties(
+        case["q"].device).multi_processor_count
+    ptr = ep.bwd_tile_ptr(case["row_ptr"], ep.bwd_tiles(
+        n, case["heads"], sms)).tolist()
+    rp, mask = case["row_ptr"].tolist(), case["mask2"].cpu().numpy()
+    dead = sum(rp[b] > rp[a] and not mask[rp[a]:rp[b]].any()
+               for a, b in zip(ptr, ptr[1:]))
+    if e_total % 64 == 0 or not dead:
+        raise AssertionError(f"{name}: E={e_total}, {dead} all-dead tiles")
+    return dead
+
+
 def phase_kernel_bwd(dev, batch):
-    """Kernel 6 on small seeded edge cases and at the flagship conv shapes
-    of a packed training batch."""
+    """Kernel 6 on small seeded edge cases, on the tiling's odd shapes
+    (`odd_cases`) and at the flagship conv shapes of a packed training
+    batch; at the line-graph conv in f32 also against float64."""
     import torch
     rng = np.random.default_rng(SEED + 10)
     flagship = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
         tag = "f32" if dtype == torch.float32 else "bf16"
+        for name, kw in odd_cases(rng):
+            case = eproj_case(rng, dtype=dtype, device=dev, scale=True, **kw)
+            check_odd_tiling(name, case)
+            check_bwd_case(f"{name}_{tag}", case, tol)
         degs = rng.integers(0, 7, 40)
         check_bwd_case(f"small_{tag}_ch8", eproj_case(
             rng, n=40, heads=2, hidden=16, fe=16, degs=degs, dtype=dtype,
@@ -466,7 +537,37 @@ def phase_kernel_bwd(dev, batch):
                               device=dev)
             err = check_bwd_case(f"{which}_conv_{tagl}", case, tol)
             flagship[(which, tagl)] = (case, err)
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+    case = flagship[("lg", "float32")][0]
+    args = bwd_inputs(case)
+    f64_line("attn_eproj_bwd", case,
+             lambda: ep.attention_eproj_bwd_cuda(*args, heads=case["heads"]),
+             lambda: ep.attention_eproj_bwd_plain(*args, heads=case["heads"]),
+             args)
     return flagship
+
+
+def f64_line(kernel, case, run_kernel, run_plain, ref_args, **ref_kw):
+    """The kernel's f32 error and the plain f32 version's against a float64
+    reference computed on the card (`bwd_bench.eproj_bwd_f64`), each
+    output's largest absolute difference over the reference's largest
+    magnitude."""
+    import torch
+    from gnnep_tpu_torch.dev.bwd_bench import (OUTPUTS, eproj_bwd_f64,
+                                               f64_errors)
+    ref = eproj_bwd_f64(*ref_args, heads=case["heads"], **ref_kw)
+    kern = f64_errors(run_kernel(), ref, OUTPUTS[kernel])
+    torch.cuda.synchronize()
+    plain = f64_errors(run_plain(), ref, OUTPUTS[kernel])
+    say("kernel", kernel=kernel, check="f32_vs_float64", conv="lg",
+        **{f"kernel_err_{k}": f"{v:.3e}" for k, v in kern.items()},
+        **{f"plain_err_{k}": f"{v:.3e}" for k, v in plain.items()},
+        worst_ratio_kernel_to_plain=(
+            f"{max(kern[k] / max(plain[k], 1e-30) for k in kern):.2f}"))
+    for k, v in kern.items():
+        if not np.isfinite(v) or v > 1e-4:
+            raise AssertionError(f"{kernel}: f32 {k} differs from float64 "
+                                 f"by {v:.3e} of its largest value")
 
 
 def segsum_case(rng, batch, which, *, width, dtype, device):
@@ -952,15 +1053,29 @@ def phase_kernel_span(dev, batch):
                                     interior_pad=0.1, dead_rows=(5,))),
             ("ch96", dict(n=16, heads=2, hidden=192, fe=32,
                           degs=rng.integers(1, 20, 16), interior_pad=0.1))]
-        for name, kw in small:
-            check_span_case(f"{name}_{tag}", span_small_case(
-                rng, dtype=dtype, device=dev, scale=True, **kw), tol)
+        for name, kw in small + odd_cases(rng):
+            c = span_small_case(rng, dtype=dtype, device=dev, scale=True,
+                                **kw)
+            if name.startswith("hub"):
+                check_odd_tiling(name, c)
+            check_span_case(f"{name}_{tag}", c, tol)
         for which in ("lg", "atom"):
             c = span_batch_case(rng, batch, which, hidden=256, dtype=dtype,
                                 device=dev)
             errs = check_span_case(f"{which}_conv_{tag}", c, tol)
             for kernel, err in zip(flagship, errs):
                 flagship[kernel][(which, tag)] = (c, err)
+    from gnnep_tpu_torch.ops.cuda import attention_span as sp
+    c = flagship["attn_span_bwd"][("lg", "float32")][0]
+    g, mx, den = span_bwd_inputs(c)
+    head = span_fwd_args(c) + (c["row_ptr"],)
+    tail = (c["dst"], g, mx, den)
+    f64_line("attn_span_bwd", c,
+             lambda: sp.attention_span_bwd_cuda(*head, c["src"], *tail,
+                                                heads=c["heads"]),
+             lambda: sp.attention_span_bwd_plain(*head, c["src_plain"],
+                                                 *tail, heads=c["heads"]),
+             head + tail, src=c["src_plain"], n_src=c["kvn"].shape[0])
     return flagship
 
 
@@ -1813,7 +1928,7 @@ def phase_span_times(span_flag):
         lambda c: sp.attention_span_bwd_plain(
             *span_fwd_args(c), c["row_ptr"], c["src_plain"], c["dst"],
             *args[id(c)], heads=c["heads"]),
-        span_bwd_bound_ms)
+        span_bwd_bound_ms, split=True)
     return {"attn_span_fwd": fwd, "attn_span_bwd": bwd}
 
 
@@ -1899,10 +2014,14 @@ def phase_probes(dev, batch):
 
 
 def kernel_times(name, flagship, run_kernel, run_plain, bound_fn,
-                 library=None):
+                 library=None, split=False):
     """Device ms per launch, wall ms per call with host work, plain ms and
     bound of one kernel at each flagship case; `library(case)`, where given,
-    is one PyTorch call computing the same function, timed beside it."""
+    is one PyTorch call computing the same function, timed beside it. With
+    `split` (kernels 6 and 9), also each CUDA kernel's device ms (from
+    torch.profiler) and the three products' time as `torch.matmul` calls,
+    a diagnostic floor that the port never calls."""
+    from gnnep_tpu_torch.dev.bwd_bench import gemm_floor_ms, kernel_split_ms
     cases = []
     for (which, dtype), (case, err) in flagship.items():
         kern_ms = device_ms(lambda: run_kernel(case))
@@ -1920,6 +2039,14 @@ def kernel_times(name, flagship, run_kernel, run_plain, bound_fn,
             plain_ms_no_yardstick=f"{plain_ms:.4f}",
             library_ms=("none (no single PyTorch call computes this "
                         "function)" if lib_ms is None else f"{lib_ms:.4f}"))
+        if split:
+            parts = kernel_split_ms(lambda: run_kernel(case))
+            floor = gemm_floor_ms(case, device_ms)
+            cases[-1].update(split_ms=parts, gemm_floor_ms=floor)
+            say("times", kernel=name, conv=which, dtype=dtype,
+                **{f"{k.replace('attn_eproj_bwd_', '')}_ms": f"{v:.4f}"
+                   for k, v in parts.items() if k.endswith("kernel")},
+                gemm_floor_ms_diagnostic=f"{floor:.4f}")
     return cases
 
 
@@ -1942,7 +2069,7 @@ def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
                                               heads=c["heads"]),
         lambda c: ep.attention_eproj_bwd_plain(*bwd_args[id(c)],
                                                heads=c["heads"]),
-        eproj_bwd_bound_ms)
+        eproj_bwd_bound_ms, split=True)
 
     def seg_args(c):
         return c["values"], c["order"], c["starts"]

@@ -29,10 +29,13 @@
 //  - A dead edge (masked, or owned by the dummy row n-1, never walked)
 //    never reads kvn and adds nothing to it; its dea row is zero.
 //
-// What bounds it on this card: as kernel 6, three E·Fe·H products on the
-// CUDA cores (f32 FMAs for both input types); its bytes are lower than
-// kernel 6's by the edge-space kv it no longer reads and the dkv [E, 2H] it
-// no longer writes.
+// What bounds it on this card: as kernel 6 (attn_eproj_bwd.cuh: the three
+// E·Fe·H products on the tensor cores, bf16 mma or 3xTF32, from a cp.async
+// staging ring; edge-balanced target tiles, one wave of two blocks per SM;
+// phase 2's per-edge walk and phase 1's gathers set the bf16 time). Its bytes are lower than kernel 6's by the edge-space kv it no
+// longer reads and the dkv [E, 2H] it no longer writes; in their place come
+// the f32 atomics of phase 2, one per live edge and channel of dk and of
+// dv, which land in L2 (the node table is 15.5 MB f32 at the flagship).
 
 #include "attn_eproj_bwd.cuh"
 
@@ -61,8 +64,8 @@ __global__ void __launch_bounds__(kThreads) cast_kernel(const float* acc,
 
 extern "C" {
 
-// Dynamic shared memory one block of the first kernel needs; the wrapper
-// refuses shapes above the card's per-block limit.
+// Dynamic shared memory the larger of the two kernels needs in f32 (bf16
+// needs less); the wrapper refuses shapes above the card's per-block limit.
 size_t attn_span_bwd_smem_bytes(int fe, int ch) { return smem_bytes(fe, ch); }
 
 // Launches the kernels on `stream` and returns cudaGetLastError() (0 =
@@ -77,12 +80,12 @@ int attn_span_bwd(const void* q, const void* kvn, const void* ea,
                   void* dq, void* dkvn_acc, void* dkvn, void* dea, void* dw,
                   void* logit_s, void* u_s, void* k_s, void* de_s, int n,
                   int n_src, int e_total, int hidden, int fe, int heads,
-                  float inv_sqrt_ch, int is_bf16, int rows_per_block,
-                  void* stream) {
+                  float inv_sqrt_ch, int is_bf16, const void* tile_ptr,
+                  int tiles, void* stream) {
   Args a = make_args(q, kvn, ea, w_edge, scale_t, mask2, row_ptr, dst, g,
                      stats_max, stats_den, dq, dea, dw, logit_s, u_s, k_s,
                      de_s, n, e_total, hidden, fe, heads, inv_sqrt_ch,
-                     rows_per_block);
+                     tile_ptr, tiles);
   a.src = static_cast<const long long*>(src);
   a.dkvn_acc = static_cast<float*>(dkvn_acc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

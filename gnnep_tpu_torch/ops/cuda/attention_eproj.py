@@ -90,11 +90,15 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.attn_eproj_fwd_smem_bytes.restype = ctypes.c_size_t
     if name == _KERNEL_BWD and lib.attn_eproj_bwd.argtypes is None:
         lib.attn_eproj_bwd.argtypes = [p] * 19 + [i] * 5 + [ctypes.c_float,
-                                                            i, i, p]
+                                                            i, p, i, p]
         lib.attn_eproj_bwd.restype = i
         lib.attn_eproj_bwd_smem_bytes.argtypes = [i, i]
         lib.attn_eproj_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def rows_per_block(n: int, e_total: int, heads: int,
@@ -102,18 +106,44 @@ def rows_per_block(n: int, e_total: int, heads: int,
     """Targets per forward block: about 256 edges (four projection chunks)
     per block, but no fewer than two blocks per SM across the (rows, heads)
     grid."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sms(device)
     by_edges = -(-256 * n // max(e_total, 1))
     by_grid = -(-n * heads // (2 * sms))
     return int(max(1, min(by_edges, by_grid)))
 
 
-def bwd_rows_per_block(n: int, heads: int, device: torch.device) -> int:
-    """Targets per backward block: about two blocks per SM across the
-    (rows, heads) grid. Each block adds its dW_e slice once, so larger tiles
-    mean fewer atomic adds."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return int(max(1, -(-n * heads // (2 * sms))))
+# resident blocks per SM the backward's attention kernel is built for
+# (`kMinBlocks` in csrc/attn_eproj_bwd.cuh)
+BWD_BLOCKS_PER_SM = 2
+
+
+def bwd_tiles(n: int, heads: int, sms: int) -> int:
+    """Target tiles of the backward's attention kernel: one wave of
+    BWD_BLOCKS_PER_SM blocks per SM over the (tiles, heads) grid, but no
+    more tiles than real targets (n - 1) and at least one. Each tile adds
+    its dW_e slice once."""
+    return int(max(1, min(n - 1, -(-BWD_BLOCKS_PER_SM * sms // heads))))
+
+
+def bwd_tile_ptr(row_ptr: torch.Tensor, tiles: int) -> torch.Tensor:
+    """Edge-balanced target tiles → int32 [tiles + 1], the first target of
+    each tile and n − 1 (the dummy row, in no tile) last.
+
+    Tile i starts at the first target whose CSR range starts at or after
+    edge ⌊i·E_live/tiles⌋, E_live = row_ptr[n−1] (the edges before the
+    dummy row's). So the tiles cover every real target once, in order, and
+    a tile holds fewer than ⌈E_live/tiles⌉ + 1 edges plus the in-degree of
+    its last target: a hub row makes its own tile long and leaves the
+    tiles its range spans empty. Torch ops on row_ptr's device, so the
+    host never waits on the card."""
+    n = row_ptr.shape[0] - 1
+    i = torch.arange(tiles + 1, device=row_ptr.device)
+    # the last cut lies past every edge, so the last boundary is n − 1 (an
+    # element assignment would make the host wait on the card)
+    live = row_ptr[max(n - 1, 0):max(n, 1)]
+    cuts = torch.where(i < tiles, i * live // tiles, 2 ** 31 - 1).to(
+        torch.int32)
+    return torch.searchsorted(row_ptr[:max(n - 1, 0)], cuts, out_int32=True)
 
 
 def _check_inputs(q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, *, heads,
@@ -252,6 +282,8 @@ def attention_eproj_bwd_cuda(q: torch.Tensor, kv: torch.Tensor,
     u_s = torch.empty_like(logit_s)
     k_s = torch.empty((e_total, hidden), dtype=dt, device=device)
     de_s = torch.empty((e_total, hidden), dtype=dt, device=device)
+    tiles = bwd_tiles(n, heads, _sms(device))
+    tile_ptr = bwd_tile_ptr(row_ptr, tiles)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.attn_eproj_bwd(
@@ -261,8 +293,7 @@ def attention_eproj_bwd_cuda(q: torch.Tensor, kv: torch.Tensor,
             dq.data_ptr(), dkv.data_ptr(), dea.data_ptr(), dw.data_ptr(),
             logit_s.data_ptr(), u_s.data_ptr(), k_s.data_ptr(),
             de_s.data_ptr(), n, e_total, hidden, fe, heads, 1.0 / ch ** 0.5,
-            int(dt == torch.bfloat16), bwd_rows_per_block(n, heads, device),
-            stream)
+            int(dt == torch.bfloat16), tile_ptr.data_ptr(), tiles, stream)
     if rc != 0:
         raise RuntimeError(f"{_KERNEL_BWD} launch failed with CUDA error "
                            f"{rc}")

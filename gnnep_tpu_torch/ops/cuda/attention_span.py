@@ -27,8 +27,8 @@ import torch
 from . import build
 from .attention_eproj import (_check_inputs, _check_smem,
                               attention_eproj_bwd_plain,
-                              attention_eproj_plain, bwd_rows_per_block,
-                              rows_per_block)
+                              attention_eproj_plain, bwd_tile_ptr,
+                              bwd_tiles, rows_per_block, _sms)
 
 _KERNEL = "attn_span_fwd"
 _KERNEL_BWD = "attn_span_bwd"
@@ -84,7 +84,7 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.attn_span_fwd_smem_bytes.restype = ctypes.c_size_t
     if name == _KERNEL_BWD and lib.attn_span_bwd.argtypes is None:
         lib.attn_span_bwd.argtypes = [p] * 21 + [i] * 6 + [ctypes.c_float,
-                                                           i, i, p]
+                                                           i, p, i, p]
         lib.attn_span_bwd.restype = i
         lib.attn_span_bwd_smem_bytes.argtypes = [i, i]
         lib.attn_span_bwd_smem_bytes.restype = ctypes.c_size_t
@@ -182,6 +182,8 @@ def attention_span_bwd_cuda(q: torch.Tensor, kvn: torch.Tensor,
     u_s = torch.empty_like(logit_s)
     k_s = torch.empty((e_total, hidden), dtype=dt, device=device)
     de_s = torch.empty((e_total, hidden), dtype=dt, device=device)
+    tiles = bwd_tiles(n, heads, _sms(device))
+    tile_ptr = bwd_tile_ptr(row_ptr, tiles)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.attn_span_bwd(
@@ -192,8 +194,7 @@ def attention_span_bwd_cuda(q: torch.Tensor, kvn: torch.Tensor,
             dea.data_ptr(), dw.data_ptr(), logit_s.data_ptr(),
             u_s.data_ptr(), k_s.data_ptr(), de_s.data_ptr(), n, n_src,
             e_total, hidden, fe, heads, 1.0 / ch ** 0.5,
-            int(dt == torch.bfloat16), bwd_rows_per_block(n, heads, device),
-            stream)
+            int(dt == torch.bfloat16), tile_ptr.data_ptr(), tiles, stream)
     if rc != 0:
         raise RuntimeError(f"{_KERNEL_BWD} launch failed with CUDA error "
                            f"{rc}")

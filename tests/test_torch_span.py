@@ -439,3 +439,45 @@ def test_kernels_match_plain_on_card(batch, cuda, dtype, tol, hidden, heads):
         sc = max(np.abs(b).max(), 1e-30)
         np.testing.assert_allclose(a / sc, b / sc, rtol=tol, atol=tol,
                                    err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("heads,hidden,fe", [(4, 256, 36), (2, 16, 16),
+                                             (2, 192, 36)])
+def test_bwd_kernel_odd_shapes_on_card(cuda, dtype, tol, heads, hidden, fe):
+    """Kernel 9 on the eproj tests' odd shapes (`_odd_case`: a 1,200-edge
+    hub, a tile of dead edges, Fe 36, E not a multiple of 64, head widths
+    64, 8 and 96) over a node table of n + 7 rows, dead edges' src out of
+    range: each output within `tol` of the plain tensor's largest
+    magnitude, dead edges' dea rows and the dummy row's dq exact zeros."""
+    from test_torch_eproj_bwd import _card_args, _has_dead_tile, _odd_case
+    rng = np.random.default_rng(23)
+    c = _odd_case(rng, heads, hidden, fe)
+    assert c["kv"].shape[0] % 64 and _has_dead_tile(c, cuda)
+    n, e_total = c["q"].shape[0], c["kv"].shape[0]
+    live = c["mask"] > 0
+    src = rng.integers(0, n + 6, e_total)
+    kvn = torch.from_numpy(rng.normal(size=(n + 7, 2 * hidden))).to(
+        cuda, dtype)
+    q, _, ea, we, scale, mask, row_ptr, dst, g, _, _ = _card_args(
+        c, _cotangent(c), dtype, cuda)
+    fwd = (q, kvn, ea, we, scale, mask)
+    src_plain = torch.from_numpy(np.where(live, src, 0)).to(cuda)
+    _, mx, den = sp.attention_span_plain(*fwd, src_plain, dst, heads=heads)
+    got = sp.attention_span_bwd_cuda(
+        *fwd, row_ptr, torch.from_numpy(np.where(live, src, 10 ** 9)).to(cuda),
+        dst, g, mx, den, heads=heads)
+    torch.cuda.synchronize()
+    want = sp.attention_span_bwd_plain(*fwd, row_ptr, src_plain, dst, g, mx,
+                                       den, heads=heads)
+    for name, a, b in zip(NAMES, got, want):
+        a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+        if name == "dq":
+            assert not a[-1].any(), "dq of the dummy row must be zero"
+            a, b = a[:-1], b[:-1]
+        elif name == "dea":
+            assert not a[~live].any(), "dea of dead edges must be zero"
+            a, b = a[live], b[live]
+        assert np.abs(a - b).max() <= tol * np.abs(b).max(), name
