@@ -8,8 +8,10 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      TF32 off for matrix products and convolutions.
   2. build: nvcc builds the ten CUDA sources of `csrc/` (one nvcc per
      source, all started together) and prints each kernel's registers and
-     spills; `cuobjdump` counts the tensor-core instructions (HGMMA, HMMA)
-     of kernels 6 and 9, which must have some in every product kernel.
+     spills (kernels 5 and 8's bf16 builds must spill nothing at the
+     flagship's 64-channel tile); `cuobjdump` counts the tensor-core instructions (HGMMA, HMMA)
+     of kernels 5, 6, 8 and 9, which must have some in every product
+     kernel, both types.
   3. kernel: each kernel against its plain PyTorch version on the card, on
      small seeded edge cases and at the flagship conv shapes, f32 and bf16:
      the eproj forward (kernel 5) and backward (kernel 6), the CSR
@@ -22,7 +24,11 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      zeros. Kernels 6 and 9 also on the shapes their tiling must take (a
      1,200-edge hub, a tile of dead edges, Fe 36, E not a multiple of 64,
      head widths 8, 64 and 96), and in f32 at the line-graph conv against
-     a float64 reference beside the plain f32 version's own error.
+     a float64 reference beside the plain f32 version's own error; kernels
+     5 and 8 the same (their f32 error at most twice the plain version's).
+     Then the widths beyond the kernels' old limits (`WIDTHS`: hidden 512 /
+     4 heads, 256 / 1, 384 / 2, Fe = hidden): kernels 1-6, 8 and 9 against
+     their plain versions, f32 and bf16, dead rows exact zeros.
   4. serve: 256 synthetic MP-like graphs and a 5-member flagship ensemble
      (hidden 256, 4 layers, 4 heads, random weights from a seed) written to
      disk, then `gnnep_tpu_torch.cli.predict` in float32 and bfloat16; the
@@ -48,7 +54,8 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      per step, nothing else.
   6. check: one train step on the card against the CPU plain step from the
      same parameters and batch, dropout and jitter off, on each rung (span
-     included).
+     included), and on the default rung at hidden 512 / 4 heads and 256 /
+     1 head (2 layers).
   7. times: CUDA events, warm-up first. A kernel's (and its plain
      version's) device time per launch is the median of 30 chains of 10
      back-to-back launches; its wall time per call, host work included, and
@@ -103,6 +110,12 @@ CHAIN, SPIN_CYCLES = 10, 50_000_000
 # bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# dense TF32 on the tensor cores: kernels 5 and 8 run their f32 projection
+# there as three TF32 products (3xTF32)
+PEAK_TF32 = 495e12
+# (hidden, heads) beyond the kernels' old limits (Fe = hidden > 256, head
+# width > 128), all of which the trainer takes: head widths 128, 256, 192
+WIDTHS = ((512, 4), (256, 1), (384, 2))
 
 
 def say(phase: str, **kv) -> None:
@@ -253,23 +266,48 @@ def phase_build():
                 entry = f" {m.group(1)}<{args}>"
             elif "registers" in line or "spill" in line:
                 print(f"  {name}{entry}: {line.strip()}", flush=True)
+    forward_spills(build.build_logs)
     sass_tensor_cores()
 
 
 def sass_tensor_cores():
     """Tensor-core (HGMMA, HMMA) and FFMA instructions of each kernel of
-    kernels 6 and 9, from `cuobjdump --dump-sass` of the built libraries;
-    fails unless every product kernel has tensor-core instructions in both
-    types (bf16 mma, and 3xTF32 in f32)."""
+    kernels 5, 6, 8 and 9, from `cuobjdump --dump-sass` of the built
+    libraries; fails unless every product kernel has tensor-core
+    instructions in both types (bf16 mma, and 3xTF32 in f32). The ladder's
+    load-only stage (kernel 5's source, stage 0) computes no product."""
     from gnnep_tpu_torch.dev.bwd_bench import sass_counts
-    for name in ("attn_eproj_bwd", "attn_span_bwd"):
+    for name in ("attn_eproj_fwd", "attn_span_fwd", "attn_eproj_bwd",
+                 "attn_span_bwd"):
         for func, counts in sass_counts(name).items():
             say("sass", kernel=name, function=func,
                 **{op: n for op, n in counts.items()})
-            if "cast_kernel" not in func and not (counts["HGMMA"]
-                                                  + counts["HMMA"]):
+            load_only = func.startswith("attn_eproj_fwd_kernel") and \
+                func.split(",")[2] == "0"
+            if "cast_kernel" not in func and not load_only and not (
+                    counts["HGMMA"] + counts["HMMA"]):
                 raise AssertionError(f"{name} {func}: no tensor-core "
                                      "instruction in its SASS")
+
+
+def forward_spills(logs: dict) -> None:
+    """Kernels 5 and 8's bf16 builds at the flagship's column tile (64
+    channels) must spill nothing: nvcc's report of each instantiation. The
+    f32 builds' spills (a few bytes at 128 registers) are printed."""
+    for name in ("attn_eproj_fwd", "attn_span_fwd"):
+        func = ""
+        for line in logs.get(name, "").splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                func = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if not (m and int(m.group(1)) and "attn_eproj_fwd_kernel" in func
+                    and "Li64ELi4E" in func):
+                continue
+            if "bfloat16" in func:
+                raise AssertionError(f"{name} {func}: spills {m.group(1)} "
+                                     "bytes at the flagship width")
+            say("build", kernel=name, f32_flagship_spill_bytes=m.group(1))
 
 
 # --------------------------------------------------------------- phase 3
@@ -402,6 +440,14 @@ def phase_kernel(dev, batch):
                               device=dev)
             err = check_case(f"{which}_conv_{tag}", case, *tol)
             flagship[(which, tag)] = (case, err)
+    from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
+    c = flagship[("lg", "float32")][0]
+    args = (c["q"], c["kv"], c["ea"], c["w_edge"], c["scale_t"], c["mask2"])
+    fwd_f64_line("attn_eproj_fwd", c,
+                 lambda: ep.attention_eproj_cuda(*args, c["row_ptr"],
+                                                 c["dst"], heads=c["heads"]),
+                 lambda: ep.attention_eproj_plain(*args, c["dst"],
+                                                  heads=c["heads"]))
     return flagship
 
 
@@ -568,6 +614,29 @@ def f64_line(kernel, case, run_kernel, run_plain, ref_args, **ref_kw):
         if not np.isfinite(v) or v > 1e-4:
             raise AssertionError(f"{kernel}: f32 {k} differs from float64 "
                                  f"by {v:.3e} of its largest value")
+
+
+def fwd_f64_line(kernel, case, run_kernel, run_plain, **ref_kw):
+    """Kernel 5's or 8's f32 output error against a float64 reference
+    (`fwd_bench.eproj_fwd_f64`), beside the plain f32 version's own, each
+    the largest absolute difference on the real rows over the reference's
+    largest magnitude; fails if the kernel's is over twice the plain's."""
+    import torch
+    from gnnep_tpu_torch.dev.fwd_bench import eproj_fwd_f64, f64_error
+    kv = case["kvn"] if "src" in ref_kw else case["kv"]
+    ref = eproj_fwd_f64(case["q"], kv, case["ea"], case["w_edge"],
+                        case["scale_t"], case["mask2"], case["dst"],
+                        heads=case["heads"], **ref_kw)
+    kern = f64_error(run_kernel()[0], ref)
+    torch.cuda.synchronize()
+    plain = f64_error(run_plain()[0], ref)
+    say("kernel", kernel=kernel, check="f32_vs_float64", conv="lg",
+        kernel_err_out=f"{kern:.3e}", plain_err_out=f"{plain:.3e}",
+        ratio_kernel_to_plain=f"{kern / max(plain, 1e-30):.2f}")
+    if not np.isfinite(kern) or kern > 2 * plain:
+        raise AssertionError(f"{kernel}: f32 out differs from float64 by "
+                             f"{kern:.3e}, over twice the plain version's "
+                             f"{plain:.3e}")
 
 
 def segsum_case(rng, batch, which, *, width, dtype, device):
@@ -1066,6 +1135,15 @@ def phase_kernel_span(dev, batch):
             for kernel, err in zip(flagship, errs):
                 flagship[kernel][(which, tag)] = (c, err)
     from gnnep_tpu_torch.ops.cuda import attention_span as sp
+    c = flagship["attn_span_fwd"][("lg", "float32")][0]
+    fwd_f64_line("attn_span_fwd", c,
+                 lambda: sp.attention_span_cuda(*span_fwd_args(c),
+                                                c["row_ptr"], c["src"],
+                                                c["dst"], heads=c["heads"]),
+                 lambda: sp.attention_span_plain(*span_fwd_args(c),
+                                                 c["src_plain"], c["dst"],
+                                                 heads=c["heads"]),
+                 src=c["src_plain"])
     c = flagship["attn_span_bwd"][("lg", "float32")][0]
     g, mx, den = span_bwd_inputs(c)
     head = span_fwd_args(c) + (c["row_ptr"],)
@@ -1077,6 +1155,42 @@ def phase_kernel_span(dev, batch):
                                                  *tail, heads=c["heads"]),
              head + tail, src=c["src_plain"], n_src=c["kvn"].shape[0])
     return flagship
+
+
+# ------------------------------------------------- phase 3, the widths
+def phase_kernel_widths(dev):
+    """Kernels 1-6, 8 and 9 at each of WIDTHS (Fe = hidden), f32 and bf16,
+    against their plain versions at the tolerances of their other cases:
+    rows longer than a projection tile (a 300-edge hub), interior padding,
+    an all-masked row, empty rows, the dummy row's tail, a dropout scale;
+    every backward's dead rows exact zeros. Returns the cases checked."""
+    import torch
+    rng = np.random.default_rng(SEED + 60)
+    n = 48
+    checked = 0
+    for hidden, heads in WIDTHS:
+        for dtype, tol5, tol in ((torch.float32, (1e-4, 1e-5), 1e-4),
+                                 (torch.bfloat16, (0.05, 0.05), 1e-2)):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            name = f"h{hidden}x{heads}_{tag}"
+            degs = rng.integers(0, 40, n)
+            degs[7] = 300
+            kw = dict(n=n, heads=heads, hidden=hidden, fe=hidden, degs=degs,
+                      dtype=dtype, device=dev, interior_pad=0.1,
+                      dead_rows=(5,), scale=True)
+            case = eproj_case(rng, **kw)
+            check_case(name, case, *tol5)
+            check_bwd_case(name, case, tol)
+            a, g = attn_inputs(case), agg_inputs(rng, case)
+            check_rung_fwd("attn_fwd", name, a, tol)
+            check_rung_bwd("attn_bwd", name, a, tol)
+            check_rung_fwd("softmax_aggregate_fwd", name, g, tol)
+            check_rung_bwd("softmax_aggregate_bwd", name, g, tol)
+            check_span_case(name, span_small_case(rng, **kw), tol)
+            checked += 1
+    say("widths", configs=",".join(f"{h}x{k}" for h, k in WIDTHS),
+        cases=checked, kernels="1,2,3,4,5,6,8,9", result="ok")
+    return checked
 
 
 # --------------------------------------------------------------- phase 4
@@ -1521,11 +1635,13 @@ def _leaf_err(a, b, floor: float):
     return err, scale, 5e-3 * scale + floor
 
 
-def phase_check(setup, batches, dev, rung: str = "eproj"):
+def phase_check(setup, batches, dev, rung: str = "eproj", **width):
     """One train step on the card against the CPU plain step from the same
     parameters and batch, dropout and jitter off, at LRs 1e-3 / 5e-4, on
     `rung` (the card step launches that rung's forward and backward kernel
-    2·layers times each; on 'span' with the batch's measured bounds):
+    2·layers times each; on 'span' with the batch's measured bounds), at
+    the flagship config or with `width`'s fields (hidden, heads, layers)
+    replacing its own:
     - StepMetrics and every gradient element at rtol 5e-3 / atol 1e-4 (the
       JAX package's model gradient tolerance), and each leaf's gradient and
       Adam first moment within 5e-3 of that leaf's largest magnitude (plus
@@ -1554,7 +1670,7 @@ def phase_check(setup, batches, dev, rung: str = "eproj"):
     cfg = flagship_config(node_dim=store.node_dim, edge_dim=store.edge_dim,
                           angle_dim=store.angle_dim,
                           global_dim=store.global_scalar_dim + 230,
-                          dropout=0.0, **spec["cfg"])
+                          dropout=0.0, **spec["cfg"], **width)
     hyper = TrainHyper(feature_jitter_std=0.0)
     t = setup.transformer
     steps, metrics, before = {}, {}, {}
@@ -1631,7 +1747,8 @@ def phase_check(setup, batches, dev, rung: str = "eproj"):
     if left_out > 0.1 * total:
         raise AssertionError(f"train step update: {left_out} of {total} "
                              "elements have a gradient of about zero")
-    say("check", rung=rung, what="train_step_card_vs_cpu", rtol=rtol,
+    say("check", rung=rung, what="train_step_card_vs_cpu",
+        hidden=cfg.hidden, heads=cfg.heads, layers=cfg.layers, rtol=rtol,
         atol=atol, lr_mean=CHECK_LR_MEAN, lr_sigma=CHECK_LR_SIGMA,
         leaves=len(names),
         loss_sum=f"{metrics['cuda'][0]:.6f}",
@@ -1639,17 +1756,17 @@ def phase_check(setup, batches, dev, rung: str = "eproj"):
         update_elements_left_out=f"{left_out}/{total}",
         of_them_sign_open=left_sign)
     for kind, (name, e, leaf_scale, share) in worst.items():
-        say("check", rung=rung, kind=kind, nearest_limit_leaf=name,
+        say("check", rung=rung, hidden=cfg.hidden, heads=cfg.heads, kind=kind,
+            nearest_limit_leaf=name,
             max_abs_err=f"{e:.3e}", leaf_scale=f"{leaf_scale:.3e}",
             share_of_limit=f"{share:.3f}")
 
 
 # --------------------------------------------------------------- phase 7
 def eproj_bound_ms(case):
-    """Least time for the kernel's work on this card → (ms, 'bytes' or
-    'operations'): the larger of its bytes over the memory rate and its
-    operations over the peak rate of their type. Both count what this run's
-    data needs: the edge rows of kv, ea and scale_t are read once for each
+    """Least time for kernel 5's work on this card → (ms, 'bytes' or
+    'operations'), `_fwd_bound_ms`. Bytes count what this run's data
+    needs: the edge rows of kv, ea and scale_t are read once for each
     live edge (masked rows, the tail padding among them, do not enter the
     output), mask2, row_ptr, q and W_e once in full, and each output is
     written once."""
@@ -1663,10 +1780,19 @@ def eproj_bound_ms(case):
               + 4 * (live * heads + case["mask2"].numel()
                      + case["row_ptr"].numel())
               + 4 * (n * hidden + 2 * n * heads))
-    # projection, q·k, α·v; the softmax's few operations per (edge, head)
-    ops = 2 * live * fe * hidden + 4 * live * hidden + 6 * live * heads
-    dtype = "bfloat16" if item == 2 else "float32"
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return _fwd_bound_ms(nbytes, 2 * live * fe * hidden, item)
+
+
+def _fwd_bound_ms(nbytes: float, proj_ops: float, item: int):
+    """Kernels 5 and 8 → (ms, 'bytes' or 'operations'): the larger of the
+    bytes over the memory rate and the projection's operations at the rate
+    of the units that run it, the tensor cores: in bf16 one product at the
+    bf16 rate, in f32 three TF32 products (3xTF32) at the TF32 rate. (q·k,
+    α·v and the softmax, a few operations per edge and channel on the CUDA
+    cores, add under 1 % to either.)"""
+    t_ops = (proj_ops / PEAK_FLOPS["bfloat16"] if item == 2
+             else 3 * proj_ops / PEAK_TF32)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -1871,8 +1997,7 @@ def span_bound_ms(c):
               + 8 * live
               + 4 * (live * heads + c["mask2"].numel() + c["row_ptr"].numel())
               + 4 * (n * hidden + 2 * n * heads))
-    ops = 2 * live * fe * hidden + 4 * live * hidden + 6 * live * heads
-    return _bound_ms(nbytes, ops, item)
+    return _fwd_bound_ms(nbytes, 2 * live * fe * hidden, item)
 
 
 def span_bwd_bound_ms(c):
@@ -2192,6 +2317,7 @@ def main() -> int:
         seg_flag = phase_kernel_segsum(dev, train_batches[0])
         rung_flag = phase_kernel_rungs(dev, train_batches[0])
         span_flag = phase_kernel_span(dev, train_batches[0])
+        phase_kernel_widths(dev)
         launches = phase_serve(root, data, ens, cfg, batches, dev)
         rung_serve = {
             rung: phase_serve(root, data,
@@ -2210,6 +2336,10 @@ def main() -> int:
         _, span_train = phase_span_train(setup, train_batches, dev)
         for rung in ("eproj", *RUNGS, "span"):
             phase_check(setup, train_batches, dev, rung)
+        # the widths beyond the kernels' old limits, depth cut to 2 layers
+        for hidden, heads in WIDTHS[:2]:
+            phase_check(setup, train_batches, dev, "eproj", hidden=hidden,
+                        heads=heads, layers=2)
         cases = phase_times(flagship, batches, ens, dev)
         rung_cases = phase_rung_times(rung_flag)
         span_cases = phase_span_times(span_flag)

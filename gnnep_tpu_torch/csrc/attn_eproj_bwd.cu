@@ -11,13 +11,9 @@
 
 extern "C" {
 
-// Dynamic shared memory the larger of the two kernels needs in f32 (bf16
-// needs less); the wrapper refuses shapes above the card's per-block limit.
-size_t attn_eproj_bwd_smem_bytes(int fe, int ch) { return smem_bytes(fe, ch); }
-
 // Launches both kernels on `stream` and returns cudaGetLastError() (0 =
 // launched). The caller guarantees: n >= 1, e_total >= 1, hidden = heads *
-// ch with ch <= 128, contiguous tensors of the types above, row_ptr
+// ch (any ch >= 1), contiguous tensors of the types above, row_ptr
 // nondecreasing with row_ptr[n] <= e_total and dst consistent with it,
 // tile_ptr i32 [tiles + 1] nondecreasing from 0 to n - 1 (tiles >= 1), dw
 // zeroed, and scratch buffers logit_s and u_s f32 [heads, E], k_s and de_s

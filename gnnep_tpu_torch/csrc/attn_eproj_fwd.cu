@@ -19,11 +19,11 @@ namespace {
 template <typename T>
 cudaError_t dispatch_stage(const Args& a, int stage, cudaStream_t stream) {
   switch (stage) {
-    case kDma: return launch<T, 4, kDma, false>(a, stream);
-    case kEproj: return launch<T, 4, kEproj, false>(a, stream);
-    case kSddmm: return launch<T, 4, kSddmm, false>(a, stream);
-    case kSoftmax: return launch<T, 4, kSoftmax, false>(a, stream);
-    default: return launch<T, 4, kFullStage, false>(a, stream);
+    case kDma: return launch<T, 64, kDma, false>(a, stream);
+    case kEproj: return launch<T, 64, kEproj, false>(a, stream);
+    case kSddmm: return launch<T, 64, kSddmm, false>(a, stream);
+    case kSoftmax: return launch<T, 64, kSoftmax, false>(a, stream);
+    default: return launch<T, 64, kFullStage, false>(a, stream);
   }
 }
 
@@ -31,12 +31,8 @@ cudaError_t dispatch_stage(const Args& a, int stage, cudaStream_t stream) {
 
 extern "C" {
 
-// Dynamic shared memory one block needs; the wrapper refuses shapes above
-// the card's per-block limit.
-size_t attn_eproj_fwd_smem_bytes(int fe, int ch) { return smem_bytes(fe, ch); }
-
 // Launches on `stream` and returns cudaGetLastError() (0 = launched). The
-// caller guarantees: n >= 1, hidden = heads * ch with ch <= 128, contiguous
+// caller guarantees: n >= 1, hidden = heads * ch (any ch >= 1), contiguous
 // tensors of the types above, row_ptr nondecreasing with row_ptr[n] <=
 // e_total and dst consistent with it, rows_per_block >= 1, and scratch
 // buffers logit_s f32 [heads, E] and v_s [E, H] of the input type.
@@ -74,7 +70,7 @@ int attn_eproj_ladder(const void* q, const void* kv, const void* ea,
                            nullptr, out, stats_max, stats_den, logit_s, v_s,
                            n, e_total, hidden, fe, heads, inv_sqrt_ch,
                            rows_per_block);
-  if (a.ch_pad != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile_width(a.ch) != 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_bf16 ? dispatch_stage<__nv_bfloat16>(a, stage, s)
                                   : dispatch_stage<float>(a, stage, s);

@@ -23,22 +23,33 @@
 // float32 or bfloat16 (all four the same type), scale_t f32 [heads, E],
 // mask2 f32 [E], row_ptr i32 [N+1], dst i64 [E]; out f32 [N, H].
 //
-// Design. One block of 256 threads per (tile of consecutive targets, head).
-// The block keeps W_e's head slice [Fe, ch] in dynamic shared memory as f32
-// (64 KB at Fe = 256, ch = 64: above the 48 KB static limit, hence
-// cudaFuncSetAttribute). The tile's edges are one contiguous range of the
-// arena, so the projection ignores row boundaries:
+// Design. A block of 256 threads owns a tile of consecutive targets, so one
+// contiguous range of the arena, and one head (grid (tiles, heads)). One
+// block per tile for every head, which reads each ea row from device
+// memory once and not once a head, was timed slower at every flagship case
+// (PERF.md §6) and is not kept.
 //
-//  Phase 1 walks the range in chunks of 64 edges and computes each chunk's
-//  [64, ch] projection as a small GEMM (ea staged in 32-wide k-tiles, each
-//  thread a 4-edge x ch/16-channel register tile, so one shared-memory read
-//  feeds four to eight FMAs). Its epilogue forms k and v, reduces q_t · k
-//  over the 16 threads that share an edge, and writes each edge's logit and
-//  v to scratch arrays the wrapper allocates. Chunks without a live edge
-//  (runs of interior padding) are skipped.
-//  Phase 2 gives each warp one target at a time: the max and denominator
-//  over the row's live logits, then alpha and the sum of alpha · v, read
-//  back from the scratch (written by this block, so mostly from L2).
+//  Phase 1 is `project` (attn_mma.cuh): the projection of the tile's edges,
+//  256 (bf16) or 128 (f32) at a time (`FwdTiling`), on the tensor cores
+//  (bf16 `mma.sync` m16n8k16 from `ldmatrix`; f32 as 3xTF32 on m16n8k8,
+//  operands split into their tf32 parts at fragment load), with ea and W_e
+//  streamed over Fe in 32-deep slices through a `cp.async` ring, so
+//  shared memory holds no whole W_e slice and does not grow with Fe; each
+//  W_e slice serves 256 (bf16) or 128 (f32) edges. A head wider than 128 channels is
+//  walked in column tiles of 128. After each tile (e in shared memory in
+//  the input type, as the epilogue would round it), the epilogue forms k and
+//  v from e and 16-byte (f32) or 8-byte (bf16) vector loads of kv and q,
+//  sums q · k over the tile's channels (16 threads an edge, 4 edges a
+//  thread), writes v to a scratch [E, H] and, after the head's last tile,
+//  each edge's logit to a scratch [heads, E]. Dead edges (masked) load
+//  nothing and write nothing.
+//  Phase 2 gives each warp one target at a time: the max and
+//  denominator over the row's live logits, then alpha and the sum of
+//  alpha · v, two channels a lane (bf16x2 / float2 loads), read back from
+//  the scratch (written by this block, so mostly from L2). A head wider
+//  than 128 is summed in passes of 128 channels; alpha is recomputed in
+//  each pass from the same logits by the same instructions, so it rounds
+//  at the same point and to the same value in every pass.
 //
 // Each edge row belongs to exactly one target and each target to one block,
 // so there are no atomics and no sums across blocks. The dummy row n-1 owns
@@ -54,47 +65,54 @@
 //  - Interior padding rows (the packer's dilution) sit inside real rows' CSR
 //    ranges; only mask2 excludes them. The output of the dummy row n-1 is
 //    unspecified by the contract (here: out 0, max -1e30, denom 1e-16).
+//  - A masked edge writes no v; phase 2 never reads its v into the sum,
+//    not even as 0 · v.
 //  - bf16 rounding mirrors the TPU kernel (csr_attention.py:1034-1040, 1057):
 //    e is rounded to the input type before the k and v adds, k and v are
 //    rounded after them, alpha is rounded to v's type before the aggregation,
 //    and every sum is taken in f32. Keeping all logits until the row's
 //    denominator is known (rather than an online rescaled sum) is what lets
 //    alpha be rounded where the TPU kernel rounds it.
+//  - f32: 3xTF32 keeps 22 bits of each operand, and each 32-deep slice's
+//    products go to a fresh tile added with IEEE adds (the fix found on
+//    kernel 6); chip_smoke holds its error against float64 beside the plain
+//    f32 version's.
 //  - scale_t multiplies alpha after normalisation and never enters the
 //    denominator.
 //  - Span: a dead edge (masked) may carry a padding source index, so the
-//    kernel reads kv row src[j] only for a live edge; a dead edge's k and v
-//    are zeros and its logit is never read.
+//    kernel reads kv row src[j] only for a live edge.
 //
-// What bounds it on this card: the projection, 2·E·Fe·H operations (about
-// 9 GFLOP at the flagship line-graph conv), runs as f32 FMAs on the CUDA
-// cores for both input types, against about 130 MB of inputs in f32. So it
-// is bounded by operations; bf16, whose tensor-core rate this kernel does
-// not use, sits furthest from its bound.
+// What bounds it on this card: the projection is 2·E·Fe·H operations (about
+// 9.8 GFLOP at the flagship line-graph conv), on the tensor cores: in bf16
+// it is far below the bytes (about 117 MB of inputs read once), so bytes
+// bound it; in f32 its three TF32 products (29 GFLOP at 495 TFLOP/s) and
+// the bytes (about 230 MB) are within a factor of two of each other.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "attn_mma.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr int kThreads = 256;           // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;              // edges per projection tile
-constexpr int kKt = 32;                 // Fe columns per staged ea tile
-constexpr int kLdA = kKt + 4;           // staged ea row stride: 16-byte rows
-constexpr int kStage = kChunk * kKt / kThreads;  // ea loads per thread
-constexpr int kInFlight = 8;            // W_e loads a thread issues at once
-constexpr unsigned kFull = 0xffffffffu;
+// The projection's tiling (`project`): edges per staged W_e slice 64 · MT
+// and ring stages, per input type and column tile, chosen by timing
+// variants at the flagship line-graph conv (PERF.md §6). bf16 takes
+// 256 edges per slice; f32, whose slices and accumulators (a fresh tile
+// per slice) are twice as large, 128; both half that at NW 128, where the
+// accumulators would spill. Two stages: at the flagship's NW 64 a block
+// takes 87 KB (bf16) or 90 KB (f32) of shared memory, two blocks an SM,
+// and the rest of the SM's 256 KB serves as L1 for the epilogue's kv, q
+// and scratch reads (a third stage was slower in both types).
+template <typename T, int NW>
+struct FwdTiling {
+  static constexpr int kMT =
+      NW == kMaxTile ? (sizeof(T) == 2 ? 2 : 1) : (sizeof(T) == 2 ? 4 : 2);
+  static constexpr int kStages = 2;
+};
 
 // The ladder's stages, each keeping the work of those before it:
-//  kDma     every load kernel 5 makes (W_e's slice into shared memory, the
-//           ea tiles, kv, q, the logits' scratch, scale and mask), no math;
+//  kDma     every load kernel 5 makes (the ea and W_e slices through the
+//           ring, kv, q, the logits' scratch, scale and mask), no math;
 //  kEproj   + phase 1's projection, k and v formed, v written to scratch;
 //  kSddmm   + q · k, the logits written to scratch (phase 1 in full);
 //  kSoftmax + phase 2's max, denominator and alpha;
@@ -120,207 +138,137 @@ struct Args {
   float* stats_den;
   float* logit_s;  // [heads, E] scratch
   void* v_s;       // [E, H] scratch, input type
-  int n, e_total, hidden, fe, heads, ch, fe_pad, ch_pad, rows_per_block;
+  int n, e_total, hidden, fe, heads, ch, ntiles, rows_per_block;
   float inv_sqrt_ch;
 };
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_t(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_t(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // x is already a bf16 value: exact
-}
-
-// round an f32 value to the storage type T and back
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// Phase 1 for the chunk [e0, e0 + kChunk) ∩ [.., hi): projection, k, v,
-// logits. CPT = channels per thread = ch_pad / 16.
-template <typename T, int CPT, int Stage, bool Span>
-__device__ __forceinline__ void project_chunk(const Args& a, int e0, int hi,
-                                              int h, const float* w_s,
-                                              float* ea_s) {
+// The epilogue of one projection tile: chunk e0, head h, column tile nt of
+// NW channels, e in shared memory. A thread owns 4 edges × CPT = NW / 16
+// consecutive channels; the 16 threads of an edge are a half-warp. pl
+// carries each edge's partial q · k across a head's column tiles (NW 128
+// only: a narrower tile is the head's only one).
+template <typename T, int NW, int Stage, bool Span>
+__device__ __forceinline__ void fwd_epilogue(const Args& a, int e0, int hi,
+                                             int h, int nt, const T* e_s,
+                                             int ld_e, float (&pl)[4]) {
+  constexpr int CPT = NW / 16;
   const int tid = threadIdx.x;
   const int cg = tid % 16, eg = tid / 16;  // channel group, edge group
-  const int fe = a.fe, chp = a.ch_pad;
-  const T* ea = static_cast<const T*>(a.ea);
-  long long dst[4];  // targets of this thread's four edges, for the epilogue
-  long long row[4];  // Span: their kv rows, -1 for a dead edge (none read)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int j = e0 + eg * 4 + i;
-    dst[i] = j < hi ? a.dst[j] : 0;
-    if constexpr (Span)
-      row[i] = (j < hi && a.mask2[j] > 0.f) ? a.src[j] : -1;
-  }
-
-  float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  float ck = 0.f;  // kDma: a sum of the ea values this thread loaded
-
-  for (int k0 = 0; k0 < a.fe_pad; k0 += kKt) {
-    float x[kStage];
-#pragma unroll
-    for (int r = 0; r < kStage; ++r) {
-      const int lin = r * kThreads + tid;
-      const int j = lin / kKt, f = k0 + lin % kKt, e = e0 + j;
-      x[r] = (e < hi && f < fe) ? load_f(ea + static_cast<size_t>(e) * fe + f)
-                                : 0.f;
-    }
-    if constexpr (Stage == kDma) {
-#pragma unroll
-      for (int r = 0; r < kStage; ++r) ck += x[r];
-    }
-    __syncthreads();  // the previous tile's readers are done
-#pragma unroll
-    for (int r = 0; r < kStage; ++r) {
-      const int lin = r * kThreads + tid;
-      ea_s[(lin / kKt) * kLdA + lin % kKt] = x[r];
-    }
-    __syncthreads();
-    if constexpr (Stage > kDma) {
-#pragma unroll 2
-      for (int kk = 0; kk < kKt; kk += 4) {
-        float4 av[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          av[i] = *reinterpret_cast<const float4*>(ea_s + (eg * 4 + i) * kLdA + kk);
-        float b[4][CPT];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const float* row_w = w_s + (k0 + kk + s) * chp + cg * CPT;
-          if constexpr (CPT % 4 == 0) {
-#pragma unroll
-            for (int c = 0; c < CPT; c += 4) {
-              const float4 w4 = *reinterpret_cast<const float4*>(row_w + c);
-              b[s][c] = w4.x;
-              b[s][c + 1] = w4.y;
-              b[s][c + 2] = w4.z;
-              b[s][c + 3] = w4.w;
-            }
-          } else {
-#pragma unroll
-            for (int c = 0; c < CPT; ++c) b[s][c] = row_w[c];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            acc[i][c] = fmaf(av[i].x, b[0][c], acc[i][c]);
-            acc[i][c] = fmaf(av[i].y, b[1][c], acc[i][c]);
-            acc[i][c] = fmaf(av[i].z, b[2][c], acc[i][c]);
-            acc[i][c] = fmaf(av[i].w, b[3][c], acc[i][c]);
-          }
-      }
-    }
-  }
-
-  // epilogue: k, v and the logit of each of this thread's four edges
   const T* kv = static_cast<const T*>(a.kv);
   const T* q = static_cast<const T*>(a.q);
   T* v_s = static_cast<T*>(a.v_s);
   const int hid = a.hidden, ch = a.ch;
-  // every load of the epilogue is issued before the first use
-  float kx[4][CPT], vx[4][CPT], qx[4][CPT];
+  const int c0 = nt * NW + cg * CPT, left = ch - c0;  // this thread's channels
+  const bool vec =
+      ch % CPT == 0 &&
+      (reinterpret_cast<uintptr_t>(kv) | reinterpret_cast<uintptr_t>(q) |
+       reinterpret_cast<uintptr_t>(v_s)) % (sizeof(T) * CPT) == 0;
+  // edge i of the thread's four: k, v and its q · k summed onto `sum`;
+  // after the head's last column tile, the logit written
+  auto edge = [&](int i, float sum) {
+    const int r = eg * 4 + i, j = e0 + r;
+    const bool live = j < hi && a.mask2[j] > 0.f;
+    const int n_ok = live ? left : 0;  // a dead edge loads and writes nothing
+    const long long row = live ? (Span ? a.src[j] : j) : 0;
+    const long long t = live ? a.dst[j] : 0;
+    const size_t kvb = static_cast<size_t>(row) * 2 * hid + h * ch + c0;
+    float kx[CPT], vx[CPT], qx[CPT];
+    load_n<T, CPT>(kx, kv + kvb, vec, n_ok);
+    load_n<T, CPT>(vx, kv + kvb + hid, vec, n_ok);
+    load_n<T, CPT>(qx, q + static_cast<size_t>(t) * hid + h * ch + c0, vec,
+                   n_ok);
+    if constexpr (Stage == kDma) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int j = e0 + eg * 4 + i;
-    const long long t = j < hi ? dst[i] : 0;
+      for (int c = 0; c < CPT; ++c) sum += kx[c] + vx[c] + qx[c];
+    } else {
+      float vr[CPT];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int cc = cg * CPT + c;
-      const bool ok = j < hi && cc < ch;
-      const bool ok_kv = Span ? row[i] >= 0 && cc < ch : ok;
-      const size_t kvb =
-          static_cast<size_t>(Span ? row[i] : j) * 2 * hid + h * ch + cc;
-      kx[i][c] = ok_kv ? load_f(kv + kvb) : 0.f;
-      vx[i][c] = ok_kv ? load_f(kv + kvb + hid) : 0.f;
-      qx[i][c] = ok ? load_f(q + static_cast<size_t>(t) * hid + h * ch + cc)
-                    : 0.f;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int j = e0 + eg * 4 + i;
-    const bool valid = j < hi;
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int cc = cg * CPT + c;
-      if (valid && cc < ch) {
-        if constexpr (Stage == kDma) {
-          part += kx[i][c] + vx[i][c] + qx[i][c];
-        } else {
-          const float e = round_to<T>(acc[i][c]);
-          const float k = round_to<T>(kx[i][c] + e);
-          const float v = round_to<T>(vx[i][c] + e);
+      for (int c = 0; c < CPT; ++c) {
+        const float e = load_f(e_s + r * ld_e + cg * CPT + c);
+        const float k = round_to<T>(kx[c] + e);
+        vr[c] = round_to<T>(vx[c] + e);
+        if (c < n_ok) {
           if constexpr (Stage == kEproj)
-            part += k;
+            sum += k;
           else
-            part = fmaf(qx[i][c], k, part);
-          store_t(v_s + static_cast<size_t>(j) * hid + h * ch + cc, v);
+            sum = fmaf(qx[c], k, sum);
         }
       }
+      store_n<T, CPT>(v_s + static_cast<size_t>(j) * hid + h * ch + c0, vr,
+                      vec, n_ok);
     }
-    if constexpr (Stage == kDma) {
-      if (i == 0) part += ck;
-    }
-    // the 16 threads of an edge are one half-warp
+    if (nt == a.ntiles - 1) {
+      float part = sum;
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1) part += __shfl_xor_sync(kFull, part, o);
-    if (valid && cg == 0)
-      a.logit_s[static_cast<size_t>(h) * a.e_total + j] =
-          Stage >= kSddmm ? part * a.inv_sqrt_ch : part;
+      for (int o = 8; o > 0; o >>= 1) part += __shfl_xor_sync(kFull, part, o);
+      if (j < hi && cg == 0)
+        a.logit_s[static_cast<size_t>(h) * a.e_total + j] =
+            Stage >= kSddmm ? part * a.inv_sqrt_ch : part;
+    }
+    return sum;
+  };
+  if constexpr (NW == kMaxTile) {
+    // a head may span several column tiles: the four partial sums carry
+    // over in pl
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pl[i] = edge(i, nt == 0 ? 0.f : pl[i]);
+  } else {
+    // one column tile a head, so each sum ends here: two edges' loads in
+    // flight at a time, not four, keep the kernel within the 128 registers
+    // that two blocks an SM allow (four spilled)
+#pragma unroll 1
+    for (int i0 = 0; i0 < 4; i0 += 2) {
+#pragma unroll
+      for (int i = i0; i < i0 + 2; ++i) edge(i, 0.f);
+    }
   }
 }
 
+// The softmax statistics of target t, head h over its live logits, merged
+// over the warp → (max, denominator clamped at 1e-16).
+__device__ __forceinline__ float2 row_stats(const Args& a, const float* logit,
+                                            int rlo, int rhi) {
+  const int lane = threadIdx.x & 31;
+  float m = kNeg, d = 0.f;
+  for (int j = rlo + lane; j < rhi; j += 32) {
+    if (a.mask2[j] > 0.f) {
+      const float l = logit[j];
+      const float mn = fmaxf(m, l);
+      d = d * expf(m - mn) + expf(l - mn);
+      m = mn;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float m2 = __shfl_xor_sync(kFull, m, o);
+    const float d2 = __shfl_xor_sync(kFull, d, o);
+    const float mn = fmaxf(m, m2);
+    d = d * expf(m - mn) + d2 * expf(m2 - mn);
+    m = mn;
+  }
+  return make_float2(m, fmaxf(d, 1e-16f));
+}
+
 // Phase 2 of a ladder stage cut short of kFullStage, one warp per target:
-// up to kSddmm the sum of the row's live logits times their scale (every
-// load phase 2 makes but v's); at kSoftmax kernel 5's max, denominator and
-// alphas, their sum written in place of the aggregation over v.
+// up to kSddmm the sum of the row's live logits times their scale
+// (every load phase 2 makes but v's); at kSoftmax kernel 5's max,
+// denominator and alphas, their sum written in place of the aggregation
+// over v.
 template <typename T, int Stage>
-__device__ void ladder_phase2(const Args& a, int h, int t0, int t1) {
+__device__ void ladder_phase2(const Args& a, int t0, int t1, int h) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* logit = a.logit_s + static_cast<size_t>(h) * a.e_total;
-  const float* scale = a.scale_t + static_cast<size_t>(h) * a.e_total;
   for (int t = t0 + warp; t < t1; t += kWarps) {
+    const float* logit = a.logit_s + static_cast<size_t>(h) * a.e_total;
+    const float* scale = a.scale_t + static_cast<size_t>(h) * a.e_total;
     const int rlo = a.row_ptr[t], rhi = a.row_ptr[t + 1];
     float s = 0.f, m = kNeg, den = 1.f;
     if constexpr (Stage < kSoftmax) {
       for (int j = rlo + lane; j < rhi; j += 32)
         if (a.mask2[j] > 0.f) s = fmaf(logit[j], scale[j], s);
     } else {
-      float d = 0.f;
-      for (int j = rlo + lane; j < rhi; j += 32) {
-        if (a.mask2[j] > 0.f) {
-          const float l = logit[j];
-          const float mn = fmaxf(m, l);
-          d = d * expf(m - mn) + expf(l - mn);
-          m = mn;
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float m2 = __shfl_xor_sync(kFull, m, o);
-        const float d2 = __shfl_xor_sync(kFull, d, o);
-        const float mn = fmaxf(m, m2);
-        d = d * expf(m - mn) + d2 * expf(m2 - mn);
-        m = mn;
-      }
-      den = fmaxf(d, 1e-16f);
+      const float2 st = row_stats(a, logit, rlo, rhi);
+      m = st.x;
+      den = st.y;
       for (int j = rlo + lane; j < rhi; j += 32)
         if (a.mask2[j] > 0.f)
           s += round_to<T>((expf(logit[j] - m) / den) * scale[j]);
@@ -336,44 +284,24 @@ __device__ void ladder_phase2(const Args& a, int h, int t0, int t1) {
   }
 }
 
-template <typename T, int CPT, int Stage, bool Span>
-__global__ void __launch_bounds__(kThreads) attn_eproj_fwd_kernel(Args a) {
-  constexpr int CPL = (CPT + 1) / 2;  // phase 2: channels per lane
-  extern __shared__ __align__(16) float smem[];
+// NW: the column tile (16, 32, 64 or 128; `tile_width`)
+template <typename T, int NW, int Stage, bool Span>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    attn_eproj_fwd_kernel(Args a) {
+  constexpr int CPP = (NW / 2 + 31) / 32;  // phase 2: channel pairs a lane
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float alpha_s[kWarps][32];
-  const int h = blockIdx.y, tid = threadIdx.x;
-  const int fe = a.fe, ch = a.ch, chp = a.ch_pad;
-  float* w_s = smem;                       // [fe_pad, ch_pad]
-  float* ea_s = smem + a.fe_pad * chp;     // [kChunk, kLdA]
-
-  // W_e's head slice, zero beyond fe and ch
-  const T* w_edge = static_cast<const T*>(a.w_edge);
-  const int w_size = a.fe_pad * chp;
-  for (int i0 = tid; i0 < w_size; i0 += kThreads * kInFlight) {
-    float x[kInFlight];
-#pragma unroll
-    for (int r = 0; r < kInFlight; ++r) {
-      const int i = i0 + r * kThreads;
-      const int f = i / chp, c = i - f * chp;
-      x[r] = (i < w_size && f < fe && c < ch)
-                 ? load_f(w_edge + static_cast<size_t>(f) * a.hidden + h * ch + c)
-                 : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < kInFlight; ++r) {
-      const int i = i0 + r * kThreads;
-      if (i < w_size) w_s[i] = x[r];
-    }
-  }
-  __syncthreads();
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y;
+  const int ch = a.ch, hid = a.hidden;
 
   // the dummy row n-1 owns the arena's tail padding and its output is
   // unspecified: it is written as an all-masked row and never walked
   const int t0 = blockIdx.x * a.rows_per_block;
   const int t1 = min(t0 + a.rows_per_block, a.n - 1);
   if (blockIdx.x == gridDim.x - 1) {
-    for (int c = tid; c < a.ch; c += kThreads)
-      a.out[static_cast<size_t>(a.n - 1) * a.hidden + h * a.ch + c] = 0.f;
+    for (int c = tid; c < ch; c += kThreads)
+      a.out[static_cast<size_t>(a.n - 1) * hid + h * ch + c] = 0.f;
     if (tid == 0) {
       a.stats_max[static_cast<size_t>(a.n - 1) * a.heads + h] = kNeg;
       a.stats_den[static_cast<size_t>(a.n - 1) * a.heads + h] = 1e-16f;
@@ -383,75 +311,71 @@ __global__ void __launch_bounds__(kThreads) attn_eproj_fwd_kernel(Args a) {
   const int lo = a.row_ptr[t0], hi = a.row_ptr[t1];
 
   // phase 1: logits and v of the tile's edges, chunk by chunk
-  for (int e0 = lo; e0 < hi; e0 += kChunk) {
-    const int j = e0 + tid;
-    const bool live = tid < kChunk && j < hi && a.mask2[j] > 0.f;
-    if (!__syncthreads_or(live)) continue;
-    project_chunk<T, CPT, Stage, Span>(a, e0, hi, h, w_s, ea_s);
-  }
+  using Tiling = FwdTiling<T, NW>;
+  // partial q · k of the edges, one set per chunk where a head can span
+  // several column tiles (NW 128); else each chunk's sum ends in its call
+  constexpr int kSets = NW == kMaxTile ? Tiling::kMT : 1;
+  float pl[kSets][4];
+  project<T, NW, Tiling::kMT, Tiling::kStages, (Stage > kDma)>(
+      smem, static_cast<const T*>(a.ea), static_cast<const T*>(a.w_edge),
+      a.fe, hid, ch, lo, hi, h, a.ntiles,
+      [&](int c, int e0, int, int nt, const T* e_s, int ld_e) {
+        fwd_epilogue<T, NW, Stage, Span>(a, e0, hi, h, nt, e_s, ld_e,
+                                         pl[c % kSets]);
+      });
   __syncthreads();  // phase 1's scratch writes are visible to the block
 
   if constexpr (Stage < kFullStage) {
-    ladder_phase2<T, Stage>(a, h, t0, t1);
+    ladder_phase2<T, Stage>(a, t0, t1, h);
     return;
   }
 
   // phase 2: one warp per target
   const int warp = tid >> 5, lane = tid & 31;
   const T* v_s = static_cast<const T*>(a.v_s);
-  const float* logit = a.logit_s + static_cast<size_t>(h) * a.e_total;
-  const float* scale = a.scale_t + static_cast<size_t>(h) * a.e_total;
+  const bool vec = (ch & 1) == 0;
   for (int t = t0 + warp; t < t1; t += kWarps) {
+    const float* logit = a.logit_s + static_cast<size_t>(h) * a.e_total;
+    const float* scale = a.scale_t + static_cast<size_t>(h) * a.e_total;
     const int rlo = a.row_ptr[t], rhi = a.row_ptr[t + 1];
-    float m = kNeg, d = 0.f;
-    for (int j = rlo + lane; j < rhi; j += 32) {
-      if (a.mask2[j] > 0.f) {
-        const float l = logit[j];
-        const float mn = fmaxf(m, l);
-        d = d * expf(m - mn) + expf(l - mn);
-        m = mn;
-      }
-    }
+    const float2 st = row_stats(a, logit, rlo, rhi);
+    const float m = st.x, den = st.y;
+    float* out = a.out + static_cast<size_t>(t) * hid + h * ch;
+    for (int nt = 0; nt < a.ntiles; ++nt) {
+      float2 acc[CPP];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float m2 = __shfl_xor_sync(kFull, m, o);
-      const float d2 = __shfl_xor_sync(kFull, d, o);
-      const float mn = fmaxf(m, m2);
-      d = d * expf(m - mn) + d2 * expf(m2 - mn);
-      m = mn;
-    }
-    const float den = fmaxf(d, 1e-16f);
-
-    float acc[CPL];
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
-    for (int j0 = rlo; j0 < rhi; j0 += 32) {
-      const int j = j0 + lane;
-      float al = 0.f;
-      if (j < rhi && a.mask2[j] > 0.f)
-        al = round_to<T>((expf(logit[j] - m) / den) * scale[j]);
-      alpha_s[warp][lane] = al;
-      __syncwarp();
-      const int cnt = min(32, rhi - j0);
+      for (int i = 0; i < CPP; ++i) acc[i] = make_float2(0.f, 0.f);
+      for (int j0 = rlo; j0 < rhi; j0 += 32) {
+        const int j = j0 + lane;
+        float al = 0.f;
+        if (j < rhi && a.mask2[j] > 0.f)
+          al = round_to<T>((expf(logit[j] - m) / den) * scale[j]);
+        alpha_s[warp][lane] = al;
+        __syncwarp();
+        const int cnt = min(32, rhi - j0);
 #pragma unroll 4
-      for (int u = 0; u < cnt; ++u) {
-        const float w = alpha_s[warp][u];
-        const T* vr = v_s + static_cast<size_t>(j0 + u) * a.hidden + h * ch;
+        for (int u = 0; u < cnt; ++u) {
+          const float w = alpha_s[warp][u];
+          // a masked edge (w = 0) has no v written: never read into the
+          // sum, even as 0 * v
+          if (w == 0.f) continue;
+          const T* vr = v_s + static_cast<size_t>(j0 + u) * hid + h * ch;
 #pragma unroll
-        for (int i = 0; i < CPL; ++i) {
-          const int c = lane + 32 * i;
-          // a masked edge (w = 0) may have no v written: never read into
-          // the sum, even as 0 * v
-          const float v = c < ch ? load_f(vr + c) : 0.f;
-          if (w != 0.f) acc[i] = fmaf(w, v, acc[i]);
+          for (int i = 0; i < CPP; ++i) {
+            const int cc = 2 * (lane + 32 * i);
+            if (cc >= NW) continue;
+            const float2 v = load2(vr, nt * NW + cc, ch, vec);
+            acc[i].x = fmaf(w, v.x, acc[i].x);
+            acc[i].y = fmaf(w, v.y, acc[i].y);
+          }
         }
+        __syncwarp();
       }
-      __syncwarp();
-    }
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < ch) a.out[static_cast<size_t>(t) * a.hidden + h * ch + c] = acc[i];
+      for (int i = 0; i < CPP; ++i) {
+        const int cc = 2 * (lane + 32 * i);
+        if (cc < NW) store2(out, nt * NW + cc, ch, vec, acc[i].x, acc[i].y);
+      }
     }
     if (lane == 0) {
       a.stats_max[static_cast<size_t>(t) * a.heads + h] = m;
@@ -460,21 +384,12 @@ __global__ void __launch_bounds__(kThreads) attn_eproj_fwd_kernel(Args a) {
   }
 }
 
-int pad_channels(int ch) {
-  return ch <= 16 ? 16 : ch <= 32 ? 32 : ch <= 64 ? 64 : 128;
-}
-
-int pad_fe(int fe) { return (fe + kKt - 1) / kKt * kKt; }
-
-size_t smem_bytes(int fe, int ch) {
-  return sizeof(float) * (static_cast<size_t>(pad_fe(fe)) * pad_channels(ch) +
-                          static_cast<size_t>(kChunk) * kLdA);
-}
-
-template <typename T, int CPT, int Stage, bool Span>
+template <typename T, int NW, int Stage, bool Span>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.fe, a.ch);
-  auto kernel = attn_eproj_fwd_kernel<T, CPT, Stage, Span>;
+  using Tiling = FwdTiling<T, NW>;
+  constexpr size_t smem =
+      ProjLayout<T, NW, Tiling::kMT, Tiling::kStages>::kBytes;
+  auto kernel = attn_eproj_fwd_kernel<T, NW, Stage, Span>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -486,11 +401,11 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 template <typename T, int Stage, bool Span>
 cudaError_t dispatch(const Args& a, cudaStream_t stream) {
-  switch (a.ch_pad) {
-    case 16: return launch<T, 1, Stage, Span>(a, stream);
-    case 32: return launch<T, 2, Stage, Span>(a, stream);
-    case 64: return launch<T, 4, Stage, Span>(a, stream);
-    default: return launch<T, 8, Stage, Span>(a, stream);
+  switch (tile_width(a.ch)) {
+    case 16: return launch<T, 16, Stage, Span>(a, stream);
+    case 32: return launch<T, 32, Stage, Span>(a, stream);
+    case 64: return launch<T, 64, Stage, Span>(a, stream);
+    default: return launch<T, kMaxTile, Stage, Span>(a, stream);
   }
 }
 
@@ -522,8 +437,7 @@ Args make_args(const void* q, const void* kv, const void* ea,
   a.fe = fe;
   a.heads = heads;
   a.ch = hidden / heads;
-  a.fe_pad = pad_fe(fe);
-  a.ch_pad = pad_channels(a.ch);
+  a.ntiles = column_tiles(a.ch);
   a.rows_per_block = rows_per_block;
   a.inv_sqrt_ch = inv_sqrt_ch;
   return a;

@@ -18,8 +18,10 @@
 //
 // Design. One warp per (target, head); a block holds eight warps, i.e. eight
 // consecutive targets of one head. A lane holds the channels lane, lane + 32,
-// ... of the head (up to four: ch <= 128), so every row load of k or v is a
-// coalesced run of the head's channels.
+// ... of the head (up to four), so every row load of k or v is a coalesced
+// run of the head's channels; a head wider than 128 channels is walked in
+// passes of 128 (the dot products summed over the passes before the logit
+// is formed, alpha recomputed alike in each pass of the aggregation).
 //  Pass 1 walks the row in chunks of 32 edges. Four live edges at a time,
 //  every lane issues its k loads for all four before the dot products; each
 //  dot is reduced over the warp, and lane u keeps the logit of edge u of the
@@ -100,8 +102,9 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// CPL = channels per lane = ceil(ch / 32)
-template <typename T, int CPL>
+// CPL = channels per lane = ceil(ch / 32) for ch <= 128; Wide: a head
+// wider than 128 channels, walked in passes of 32 · CPL channels
+template <typename T, int CPL, bool Wide>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Args a) {
   __shared__ float alpha_s[kWarps][32];
   const int h = blockIdx.y;
@@ -112,11 +115,8 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Args a) {
   const size_t th = static_cast<size_t>(t) * a.heads + h;
   if (t == a.n - 1) {
     // the dummy row: written as an all-masked row, never walked
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < ch) a.out[static_cast<size_t>(t) * hid + h * ch + c] = 0.f;
-    }
+    for (int c = lane; c < ch; c += 32)
+      a.out[static_cast<size_t>(t) * hid + h * ch + c] = 0.f;
     if (lane == 0) {
       a.stats_max[th] = kNeg;
       a.stats_den[th] = 1e-16f;
@@ -127,13 +127,18 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Args a) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
+  const T* qrow = q + static_cast<size_t>(t) * hid + h * ch;
+  // channel passes of 32 · CPL channels (one unless Wide); q of a pass
   float qr[CPL];
+  const int npass = Wide ? (ch + 32 * CPL - 1) / (32 * CPL) : 1;
+  auto load_q = [&](int cb) {
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const int c = lane + 32 * i;
-    qr[i] = c < ch ? load_f(q + static_cast<size_t>(t) * hid + h * ch + c)
-                   : 0.f;
-  }
+    for (int i = 0; i < CPL; ++i) {
+      const int c = cb + lane + 32 * i;
+      qr[i] = c < ch ? load_f(qrow + c) : 0.f;
+    }
+  };
+  load_q(0);
   const int rlo = a.row_ptr[t], rhi = a.row_ptr[t + 1];
   float* logit = a.logit_s + static_cast<size_t>(h) * a.e_total;
   const float* scale = a.scale_t + static_cast<size_t>(h) * a.e_total;
@@ -147,23 +152,27 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Args a) {
     float my_l = 0.f;
     for (int u0 = 0; u0 < cnt; u0 += kGroup) {
       if (!((live >> u0) & 0xfu)) continue;  // four masked edges
-      float kx[kGroup][CPL];
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const bool ok = u0 + g < cnt && ((live >> (u0 + g)) & 1u);
-        const size_t row = static_cast<size_t>(j0 + u0 + g) * hid + h * ch;
-#pragma unroll
-        for (int i = 0; i < CPL; ++i) {
-          const int c = lane + 32 * i;
-          kx[g][i] = ok && c < ch ? load_f(k + row + c) : 0.f;
-        }
-      }
       float p[kGroup];
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        p[g] = 0.f;
+      for (int g = 0; g < kGroup; ++g) p[g] = 0.f;
+      for (int pass = 0; pass < npass; ++pass) {
+        const int cb = pass * 32 * CPL;
+        if constexpr (Wide) load_q(cb);
+        float kx[kGroup][CPL];
 #pragma unroll
-        for (int i = 0; i < CPL; ++i) p[g] = fmaf(qr[i], kx[g][i], p[g]);
+        for (int g = 0; g < kGroup; ++g) {
+          const bool ok = u0 + g < cnt && ((live >> (u0 + g)) & 1u);
+          const size_t row = static_cast<size_t>(j0 + u0 + g) * hid + h * ch;
+#pragma unroll
+          for (int i = 0; i < CPL; ++i) {
+            const int c = cb + lane + 32 * i;
+            kx[g][i] = ok && c < ch ? load_f(k + row + c) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g)
+#pragma unroll
+          for (int i = 0; i < CPL; ++i) p[g] = fmaf(qr[i], kx[g][i], p[g]);
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -190,35 +199,40 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Args a) {
   }
   const float den = fmaxf(d, 1e-16f);
 
-  // pass 2: alpha of 32 edges at a time, then the sum of alpha · v
-  float acc[CPL];
+  // pass 2: alpha of 32 edges at a time, then the sum of alpha · v; a wide
+  // head channel pass by channel pass, alpha recomputed in each pass by the
+  // same instructions from the same logits (so it rounds alike)
+  for (int pass = 0; pass < npass; ++pass) {
+    const int cb = pass * 32 * CPL;
+    float acc[CPL];
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
-  for (int j0 = rlo; j0 < rhi; j0 += 32) {
-    const int j = j0 + lane;
-    float al = 0.f;
-    if (j < rhi && a.mask2[j] > 0.f)
-      al = round_to<T>((expf(logit[j] - m) / den) * scale[j]);
-    alpha_s[warp][lane] = al;
-    __syncwarp();
-    const int cnt = min(32, rhi - j0);
+    for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
+    for (int j0 = rlo; j0 < rhi; j0 += 32) {
+      const int j = j0 + lane;
+      float al = 0.f;
+      if (j < rhi && a.mask2[j] > 0.f)
+        al = round_to<T>((expf(logit[j] - m) / den) * scale[j]);
+      alpha_s[warp][lane] = al;
+      __syncwarp();
+      const int cnt = min(32, rhi - j0);
 #pragma unroll 4
-    for (int u = 0; u < cnt; ++u) {
-      const float w = alpha_s[warp][u];
-      if (w == 0.f) continue;  // masked or dropped: v is not read
-      const T* vr = v + static_cast<size_t>(j0 + u) * hid + h * ch;
+      for (int u = 0; u < cnt; ++u) {
+        const float w = alpha_s[warp][u];
+        if (w == 0.f) continue;  // masked or dropped: v is not read
+        const T* vr = v + static_cast<size_t>(j0 + u) * hid + h * ch + cb;
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        const int c = lane + 32 * i;
-        if (c < ch) acc[i] = fmaf(w, load_f(vr + c), acc[i]);
+        for (int i = 0; i < CPL; ++i) {
+          const int c = lane + 32 * i;
+          if (cb + c < ch) acc[i] = fmaf(w, load_f(vr + c), acc[i]);
+        }
       }
+      __syncwarp();
     }
-    __syncwarp();
-  }
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < ch) a.out[static_cast<size_t>(t) * hid + h * ch + c] = acc[i];
+    for (int i = 0; i < CPL; ++i) {
+      const int c = cb + lane + 32 * i;
+      if (c < ch) a.out[static_cast<size_t>(t) * hid + h * ch + c] = acc[i];
+    }
   }
   if (lane == 0) {
     a.stats_max[th] = m;
@@ -226,18 +240,19 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Args a) {
   }
 }
 
-template <typename T, int CPL>
+template <typename T, int CPL, bool Wide>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.n + kWarps - 1) / kWarps, a.heads);
-  attn_fwd_kernel<T, CPL><<<grid, kThreads, 0, stream>>>(a);
+  attn_fwd_kernel<T, CPL, Wide><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const Args& a, cudaStream_t stream) {
-  if (a.ch <= 32) return launch<T, 1>(a, stream);
-  if (a.ch <= 64) return launch<T, 2>(a, stream);
-  return launch<T, 4>(a, stream);
+  if (a.ch <= 32) return launch<T, 1, false>(a, stream);
+  if (a.ch <= 64) return launch<T, 2, false>(a, stream);
+  if (a.ch <= 128) return launch<T, 4, false>(a, stream);
+  return launch<T, 4, true>(a, stream);
 }
 
 }  // namespace
@@ -245,7 +260,7 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched). The
-// caller guarantees: n >= 1, hidden = heads * ch with ch <= 128, contiguous
+// caller guarantees: n >= 1, hidden = heads * ch (any ch >= 1), contiguous
 // tensors of the types above, row_ptr nondecreasing with row_ptr[n] <=
 // e_total, and a scratch buffer logit_s f32 [heads, E]. inv_sqrt_ch is
 // 1/sqrt(ch) rounded once to f32, as the JAX kernel's constant is.

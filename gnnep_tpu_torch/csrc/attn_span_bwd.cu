@@ -64,10 +64,6 @@ __global__ void __launch_bounds__(kThreads) cast_kernel(const float* acc,
 
 extern "C" {
 
-// Dynamic shared memory the larger of the two kernels needs in f32 (bf16
-// needs less); the wrapper refuses shapes above the card's per-block limit.
-size_t attn_span_bwd_smem_bytes(int fe, int ch) { return smem_bytes(fe, ch); }
-
 // Launches the kernels on `stream` and returns cudaGetLastError() (0 =
 // launched). The caller guarantees what attn_eproj_bwd's does, with kvn
 // [n_src, 2H] in place of kv, 0 <= src[j] < n_src < 2^31 - 1 for every live

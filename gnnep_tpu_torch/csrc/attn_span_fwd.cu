@@ -19,17 +19,14 @@
 // counterpart here. The gathered row is exact, as the one-hot product is,
 // so the result rounds as kernel 5's does.
 //
-// What bounds it on this card: as kernel 5, the projection's 2·E·Fe·H
-// operations on the CUDA cores (f32 FMAs for both input types); its bytes
-// are lower than kernel 5's by the edge-space kv arena it no longer reads.
+// What bounds it on this card: as kernel 5 (the projection on the tensor
+// cores, bf16 mma or 3xTF32, from a cp.async ring that streams ea and W_e
+// over Fe); its bytes are lower than kernel 5's by the edge-space kv arena
+// it no longer reads.
 
 #include "attn_eproj_fwd.cuh"
 
 extern "C" {
-
-// Dynamic shared memory one block needs; the wrapper refuses shapes above
-// the card's per-block limit.
-size_t attn_span_fwd_smem_bytes(int fe, int ch) { return smem_bytes(fe, ch); }
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched). The
 // caller guarantees what attn_eproj_fwd's does, with kvn [n_src, 2H] in

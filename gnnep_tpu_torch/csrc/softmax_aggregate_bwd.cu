@@ -19,7 +19,8 @@
 //
 // Design. Two kernels.
 //  softmax_aggregate_bwd_kernel: one warp per (target, head), eight per
-//  block, lanes over the head's channels, as the forward.
+//  block, lanes over the head's channels, as the forward (a head wider than
+//  128 channels in passes of 128, alpha recomputed alike in each).
 //   Pass 1 walks the row's counted edges four at a time (their v loads
 //   issued together), reduces g · v over the warp, and writes each edge's s
 //   and u to scratch [heads, E] arrays the wrapper allocates; the warp sums
@@ -98,8 +99,9 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
 // the TPU kernel's clamp: a logit of -1e30 (masked) never counts
 __device__ __forceinline__ bool counts(float l) { return l > 0.5f * kNeg; }
 
-// CPL = channels per lane = ceil(ch / 32)
-template <typename T, int CPL>
+// CPL = channels per lane = ceil(ch / 32) for ch <= 128; Wide: a head
+// wider than 128 channels, walked in passes of 32 · CPL channels
+template <typename T, int CPL, bool Wide>
 __global__ void __launch_bounds__(kThreads)
     softmax_aggregate_bwd_kernel(Args a) {
   __shared__ float al_w[kWarps][32];
@@ -112,13 +114,18 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* v = static_cast<const T*>(a.v);
   T* dv = static_cast<T*>(a.dv);
+  const float* grow = a.g + static_cast<size_t>(t) * hid + h * ch;
+  // channel passes of 32 · CPL channels (one unless Wide); g of a pass
   float gr[CPL];
+  const int npass = Wide ? (ch + 32 * CPL - 1) / (32 * CPL) : 1;
+  auto load_g = [&](int cb) {
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const int c = lane + 32 * i;
-    gr[i] = c < ch ? round_to<T>(a.g[static_cast<size_t>(t) * hid + h * ch + c])
-                   : 0.f;
-  }
+    for (int i = 0; i < CPL; ++i) {
+      const int c = cb + lane + 32 * i;
+      gr[i] = c < ch ? round_to<T>(grow[c]) : 0.f;
+    }
+  };
+  load_g(0);
   const size_t th = static_cast<size_t>(t) * a.heads + h;
   const float m = a.stats_max[th], den = a.stats_den[th];
   const int rlo = a.row_ptr[t], rhi = a.row_ptr[t + 1];
@@ -139,23 +146,27 @@ __global__ void __launch_bounds__(kThreads)
     float my_u = 0.f;
     for (int u0 = 0; u0 < cnt; u0 += kGroup) {
       if (!((live >> u0) & 0xfu)) continue;  // four edges that do not count
-      float vx[kGroup][CPL];
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const bool ok = u0 + g < cnt && ((live >> (u0 + g)) & 1u);
-        const size_t row = static_cast<size_t>(j0 + u0 + g) * hid + h * ch;
-#pragma unroll
-        for (int i = 0; i < CPL; ++i) {
-          const int c = lane + 32 * i;
-          vx[g][i] = ok && c < ch ? load_f(v + row + c) : 0.f;
-        }
-      }
       float pu[kGroup];
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        pu[g] = 0.f;
+      for (int g = 0; g < kGroup; ++g) pu[g] = 0.f;
+      for (int pass = 0; pass < npass; ++pass) {
+        const int cb = pass * 32 * CPL;
+        if constexpr (Wide) load_g(cb);
+        float vx[kGroup][CPL];
 #pragma unroll
-        for (int i = 0; i < CPL; ++i) pu[g] = fmaf(gr[i], vx[g][i], pu[g]);
+        for (int g = 0; g < kGroup; ++g) {
+          const bool ok = u0 + g < cnt && ((live >> (u0 + g)) & 1u);
+          const size_t row = static_cast<size_t>(j0 + u0 + g) * hid + h * ch;
+#pragma unroll
+          for (int i = 0; i < CPL; ++i) {
+            const int c = cb + lane + 32 * i;
+            vx[g][i] = ok && c < ch ? load_f(v + row + c) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g)
+#pragma unroll
+          for (int i = 0; i < CPL; ++i) pu[g] = fmaf(gr[i], vx[g][i], pu[g]);
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -176,33 +187,38 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) inner += __shfl_xor_sync(kFull, inner, o);
 
-  // pass 2: dl of 32 edges at a time, then their dv rows
-  for (int j0 = rlo; j0 < rhi; j0 += 32) {
-    const int j = j0 + lane;
-    float al = 0.f;
-    if (j < rhi) {
-      float dl = 0.f;
-      // the same lane wrote s and u of its edge in pass 1
-      if (counts(logit[j])) {
-        const float s = s_h[j], sc = scale[j];
-        dl = s * (sc * u_h[j] - inner);
-        al = round_to<T>(s * sc);
+  // pass 2: dl of 32 edges at a time (written in the first channel pass),
+  // then their dv rows; alpha recomputed alike in each pass
+  for (int pass = 0; pass < npass; ++pass) {
+    const int cb = pass * 32 * CPL;
+    if constexpr (Wide) load_g(cb);
+    for (int j0 = rlo; j0 < rhi; j0 += 32) {
+      const int j = j0 + lane;
+      float al = 0.f;
+      if (j < rhi) {
+        float dl = 0.f;
+        // the same lane wrote s and u of its edge in pass 1
+        if (counts(logit[j])) {
+          const float s = s_h[j], sc = scale[j];
+          dl = s * (sc * u_h[j] - inner);
+          al = round_to<T>(s * sc);
+        }
+        if (pass == 0) dl_h[j] = dl;
       }
-      dl_h[j] = dl;
-    }
-    al_w[warp][lane] = al;
-    __syncwarp();
-    const int cnt = min(32, rhi - j0);
-    for (int u = 0; u < cnt; ++u) {
-      const float alu = al_w[warp][u];
-      T* dvr = dv + static_cast<size_t>(j0 + u) * hid + h * ch;
+      al_w[warp][lane] = al;
+      __syncwarp();
+      const int cnt = min(32, rhi - j0);
+      for (int u = 0; u < cnt; ++u) {
+        const float alu = al_w[warp][u];
+        T* dvr = dv + static_cast<size_t>(j0 + u) * hid + h * ch + cb;
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        const int c = lane + 32 * i;
-        if (c < ch) store_t(dvr + c, alu * gr[i]);
+        for (int i = 0; i < CPL; ++i) {
+          const int c = lane + 32 * i;
+          if (cb + c < ch) store_t(dvr + c, alu * gr[i]);
+        }
       }
+      __syncwarp();
     }
-    __syncwarp();
   }
 }
 
@@ -222,10 +238,10 @@ __global__ void __launch_bounds__(kThreads) zero_tail_kernel(Args a) {
     a.dl_t[(i / rows) * a.e_total + lo + i % rows] = 0.f;
 }
 
-template <typename T, int CPL>
+template <typename T, int CPL, bool Wide>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.n + kWarps - 1) / kWarps, a.heads);
-  softmax_aggregate_bwd_kernel<T, CPL><<<grid, kThreads, 0, stream>>>(a);
+  softmax_aggregate_bwd_kernel<T, CPL, Wide><<<grid, kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   zero_tail_kernel<T><<<kTailBlocks, kThreads, 0, stream>>>(a);
@@ -234,9 +250,10 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t dispatch(const Args& a, cudaStream_t stream) {
-  if (a.ch <= 32) return launch<T, 1>(a, stream);
-  if (a.ch <= 64) return launch<T, 2>(a, stream);
-  return launch<T, 4>(a, stream);
+  if (a.ch <= 32) return launch<T, 1, false>(a, stream);
+  if (a.ch <= 64) return launch<T, 2, false>(a, stream);
+  if (a.ch <= 128) return launch<T, 4, false>(a, stream);
+  return launch<T, 4, true>(a, stream);
 }
 
 }  // namespace
@@ -244,8 +261,8 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // Launches both kernels on `stream` and returns cudaGetLastError() (0 =
-// launched). The caller guarantees: n >= 1, hidden = heads * ch with ch <=
-// 128, contiguous tensors of the types above, row_ptr nondecreasing with
+// launched). The caller guarantees: n >= 1, hidden = heads * ch (any ch >=
+// 1), contiguous tensors of the types above, row_ptr nondecreasing with
 // row_ptr[n] <= e_total, and scratch buffers s_s and u_s f32 [heads, E].
 int softmax_aggregate_bwd(const void* logits_t, const void* scale_t,
                           const void* v, const void* row_ptr, const void* g,

@@ -17,8 +17,9 @@
 // i32 [N+1]; out f32 [N, H].
 //
 // Design. One warp per (target, head), eight per block, lanes over the
-// head's channels (lane, lane + 32, ...; ch <= 128), as attn_fwd.cu without
-// the q·k products.
+// head's channels (lane, lane + 32, ...; up to four a lane, and a head
+// wider than 128 channels in passes of 128), as attn_fwd.cu without the
+// q·k products.
 //  Pass 1: the row's logits, 32 at a time, into a running (max,
 //  denominator) per lane, merged over the warp.
 //  Pass 2: alpha of 32 edges at a time into shared memory, then the sum of
@@ -87,8 +88,9 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
 // the TPU kernel's clamp: a logit of -1e30 (masked) never counts
 __device__ __forceinline__ bool counts(float l) { return l > 0.5f * kNeg; }
 
-// CPL = channels per lane = ceil(ch / 32)
-template <typename T, int CPL>
+// CPL = channels per lane = ceil(ch / 32) for ch <= 128; Wide: a head
+// wider than 128 channels, walked in passes of 32 · CPL channels
+template <typename T, int CPL, bool Wide>
 __global__ void __launch_bounds__(kThreads) softmax_aggregate_fwd_kernel(Args a) {
   __shared__ float alpha_s[kWarps][32];
   const int h = blockIdx.y;
@@ -100,9 +102,7 @@ __global__ void __launch_bounds__(kThreads) softmax_aggregate_fwd_kernel(Args a)
   float* out = a.out + static_cast<size_t>(t) * hid + h * ch;
   if (t == a.n - 1) {
     // the dummy row: written as an all-masked row, never walked
-#pragma unroll
-    for (int i = 0; i < CPL; ++i)
-      if (lane + 32 * i < ch) out[lane + 32 * i] = 0.f;
+    for (int c = lane; c < ch; c += 32) out[c] = 0.f;
     if (lane == 0) {
       a.stats_max[th] = kNeg;
       a.stats_den[th] = 1e-16f;
@@ -134,55 +134,62 @@ __global__ void __launch_bounds__(kThreads) softmax_aggregate_fwd_kernel(Args a)
   }
   const float den = fmaxf(d, 1e-16f);
 
-  // pass 2: alpha of 32 edges at a time, then the sum of alpha · v
+  // pass 2: alpha of 32 edges at a time, then the sum of alpha · v; a wide
+  // head channel pass by channel pass, alpha recomputed in each pass by the
+  // same instructions from the same values (so it rounds alike)
   const T* v = static_cast<const T*>(a.v);
-  float acc[CPL];
+  const int npass = Wide ? (ch + 32 * CPL - 1) / (32 * CPL) : 1;
+  for (int pass = 0; pass < npass; ++pass) {
+    const int cb = pass * 32 * CPL;
+    float acc[CPL];
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
-  for (int j0 = rlo; j0 < rhi; j0 += 32) {
-    const int j = j0 + lane;
-    float al = 0.f;
-    if (j < rhi) {
-      const float l = logit[j];
-      if (counts(l)) al = round_to<T>((expf(l - m) / den) * scale[j]);
-    }
-    alpha_s[warp][lane] = al;
-    __syncwarp();
-    const int cnt = min(32, rhi - j0);
-#pragma unroll 4
-    for (int u = 0; u < cnt; ++u) {
-      const float w = alpha_s[warp][u];
-      if (w == 0.f) continue;  // masked or dropped: v is not read
-      const T* vr = v + static_cast<size_t>(j0 + u) * hid + h * ch;
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        const int c = lane + 32 * i;
-        if (c < ch) acc[i] = fmaf(w, load_f(vr + c), acc[i]);
+    for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
+    for (int j0 = rlo; j0 < rhi; j0 += 32) {
+      const int j = j0 + lane;
+      float al = 0.f;
+      if (j < rhi) {
+        const float l = logit[j];
+        if (counts(l)) al = round_to<T>((expf(l - m) / den) * scale[j]);
       }
-    }
-    __syncwarp();
-  }
+      alpha_s[warp][lane] = al;
+      __syncwarp();
+      const int cnt = min(32, rhi - j0);
+#pragma unroll 4
+      for (int u = 0; u < cnt; ++u) {
+        const float w = alpha_s[warp][u];
+        if (w == 0.f) continue;  // masked or dropped: v is not read
+        const T* vr = v + static_cast<size_t>(j0 + u) * hid + h * ch + cb;
 #pragma unroll
-  for (int i = 0; i < CPL; ++i)
-    if (lane + 32 * i < ch) out[lane + 32 * i] = acc[i];
+        for (int i = 0; i < CPL; ++i) {
+          const int c = lane + 32 * i;
+          if (cb + c < ch) acc[i] = fmaf(w, load_f(vr + c), acc[i]);
+        }
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+      if (cb + lane + 32 * i < ch) out[cb + lane + 32 * i] = acc[i];
+  }
   if (lane == 0) {
     a.stats_max[th] = m;
     a.stats_den[th] = den;
   }
 }
 
-template <typename T, int CPL>
+template <typename T, int CPL, bool Wide>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.n + kWarps - 1) / kWarps, a.heads);
-  softmax_aggregate_fwd_kernel<T, CPL><<<grid, kThreads, 0, stream>>>(a);
+  softmax_aggregate_fwd_kernel<T, CPL, Wide><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const Args& a, cudaStream_t stream) {
-  if (a.ch <= 32) return launch<T, 1>(a, stream);
-  if (a.ch <= 64) return launch<T, 2>(a, stream);
-  return launch<T, 4>(a, stream);
+  if (a.ch <= 32) return launch<T, 1, false>(a, stream);
+  if (a.ch <= 64) return launch<T, 2, false>(a, stream);
+  if (a.ch <= 128) return launch<T, 4, false>(a, stream);
+  return launch<T, 4, true>(a, stream);
 }
 
 }  // namespace
@@ -190,7 +197,7 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched). The
-// caller guarantees: n >= 1, hidden = heads * ch with ch <= 128, contiguous
+// caller guarantees: n >= 1, hidden = heads * ch (any ch >= 1), contiguous
 // tensors of the types above, and row_ptr nondecreasing with row_ptr[n] <=
 // e_total.
 int softmax_aggregate_fwd(const void* logits_t, const void* scale_t,

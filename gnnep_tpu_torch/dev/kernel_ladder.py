@@ -27,9 +27,8 @@ from . import event_ms
 from ..ops.cuda import build
 from ..utils.device import resolve_device
 from ..utils.synth import flagship_batch
-from ..ops.cuda.attention_eproj import (_KERNEL, _check_inputs, _check_smem,
-                                        _lib, attention_eproj_plain,
-                                        rows_per_block)
+from ..ops.cuda.attention_eproj import (_KERNEL, _check_inputs, _lib,
+                                        attention_eproj_plain, rows_per_block)
 
 STAGES = ("dma", "eproj", "sddmm", "softmax", "full")
 
@@ -62,7 +61,6 @@ def ladder_cuda(q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, *,
                          f"not {ch} and {n}")
     device = q.device
     lib = _ladder_lib()
-    _check_smem(lib.attn_eproj_fwd_smem_bytes, fe, ch, device)
     out = torch.empty((n, hidden), dtype=torch.float32, device=device)
     mx = torch.empty((n, heads), dtype=torch.float32, device=device)
     den = torch.empty((n, heads), dtype=torch.float32, device=device)

@@ -158,8 +158,7 @@ def _check_inputs(logits_t, scale_t, v, row_ptr, *, heads, extra=()):
     n = row_ptr.shape[0] - 1
     bad = [name for name, t, shape in extra
            if tuple(t.shape) != shape(n, hidden)]
-    if (v.dim() != 2 or heads <= 0 or hidden % heads
-            or hidden // heads > 128 or e_total >= 2 ** 31
+    if (v.dim() != 2 or heads <= 0 or hidden % heads or e_total >= 2 ** 31
             or tuple(logits_t.shape) != (heads, e_total)
             or tuple(scale_t.shape) != (heads, e_total)
             or row_ptr.dim() != 1 or n < 0 or bad):
@@ -167,8 +166,7 @@ def _check_inputs(logits_t, scale_t, v, row_ptr, *, heads, extra=()):
             f"shapes the kernel does not take: logits_t "
             f"{tuple(logits_t.shape)}, scale_t {tuple(scale_t.shape)}, v "
             f"{tuple(v.shape)}, row_ptr {tuple(row_ptr.shape)}, heads "
-            f"{heads} (needs hidden % heads == 0 and a head width <= 128); "
-            f"wrong shape: {bad}")
+            f"{heads} (needs hidden % heads == 0); wrong shape: {bad}")
     return n, hidden, e_total
 
 

@@ -140,8 +140,7 @@ def _check_inputs(q, k_e, v_e, scale_t, mask2, row_ptr, *, heads, extra=()):
     hidden = q.shape[1] if q.dim() == 2 else -1
     e_total = k_e.shape[0]
     bad = [name for name, t, shape in extra if tuple(t.shape) != shape]
-    if (q.dim() != 2 or heads <= 0 or hidden % heads
-            or hidden // heads > 128 or e_total >= 2 ** 31
+    if (q.dim() != 2 or heads <= 0 or hidden % heads or e_total >= 2 ** 31
             or tuple(k_e.shape) != (e_total, hidden)
             or tuple(v_e.shape) != (e_total, hidden)
             or tuple(scale_t.shape) != (heads, e_total)
@@ -152,7 +151,7 @@ def _check_inputs(q, k_e, v_e, scale_t, mask2, row_ptr, *, heads, extra=()):
             f"{tuple(k_e.shape)}, v_e {tuple(v_e.shape)}, scale_t "
             f"{tuple(scale_t.shape)}, mask2 {tuple(mask2.shape)}, row_ptr "
             f"{tuple(row_ptr.shape)}, heads {heads} (needs hidden % heads "
-            f"== 0 and a head width <= 128); wrong shape: {bad}")
+            f"== 0); wrong shape: {bad}")
     return n, hidden, e_total
 
 

@@ -86,14 +86,10 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.attn_eproj_fwd.argtypes = [p] * 13 + [i] * 5 + [ctypes.c_float,
                                                             i, i, p]
         lib.attn_eproj_fwd.restype = i
-        lib.attn_eproj_fwd_smem_bytes.argtypes = [i, i]
-        lib.attn_eproj_fwd_smem_bytes.restype = ctypes.c_size_t
     if name == _KERNEL_BWD and lib.attn_eproj_bwd.argtypes is None:
         lib.attn_eproj_bwd.argtypes = [p] * 19 + [i] * 5 + [ctypes.c_float,
                                                             i, p, i, p]
         lib.attn_eproj_bwd.restype = i
-        lib.attn_eproj_bwd_smem_bytes.argtypes = [i, i]
-        lib.attn_eproj_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -103,11 +99,12 @@ def _sms(device: torch.device) -> int:
 
 def rows_per_block(n: int, e_total: int, heads: int,
                    device: torch.device) -> int:
-    """Targets per forward block: about 256 edges (four projection chunks)
-    per block, but no fewer than two blocks per SM across the (rows, heads)
-    grid."""
+    """Targets per forward block: about 512 edges (two bf16 projection
+    tiles; 512 timed faster than 256 and 128 at the flagship line-graph
+    conv, PERF.md §6) per block, but no fewer than two blocks per SM
+    across the (rows, heads) grid."""
     sms = _sms(device)
-    by_edges = -(-256 * n // max(e_total, 1))
+    by_edges = -(-512 * n // max(e_total, 1))
     by_grid = -(-n * heads // (2 * sms))
     return int(max(1, min(by_edges, by_grid)))
 
@@ -173,7 +170,7 @@ def _check_inputs(q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, *, heads,
     bad_extra = [name for name, t, dtype, shape in extra
                  if t.dtype != dtype or tuple(t.shape) != shape]
     kv_rows = kv.shape[0] if node_kv else e_total
-    if (q.dim() != 2 or heads <= 0 or hidden % heads or ch > 128
+    if (q.dim() != 2 or heads <= 0 or hidden % heads
             or tuple(kv.shape) != (kv_rows, 2 * hidden)
             or kv_rows >= 2 ** 31 - 1
             or ea.dim() != 2 or ea.shape[0] != e_total
@@ -188,19 +185,9 @@ def _check_inputs(q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, *, heads,
             f"{tuple(kv.shape)}, ea {tuple(ea.shape)}, w_edge "
             f"{tuple(w_edge.shape)}, scale_t {tuple(scale_t.shape)}, mask2 "
             f"{tuple(mask2.shape)}, row_ptr {tuple(row_ptr.shape)}, dst "
-            f"{tuple(dst.shape)}, heads {heads} (needs hidden % heads == 0 "
-            f"and a head width <= 128); wrong type or shape: {bad_extra}")
+            f"{tuple(dst.shape)}, heads {heads} (needs hidden % heads == 0); "
+            f"wrong type or shape: {bad_extra}")
     return n, hidden, e_total, fe, ch
-
-
-def _check_smem(lib_fn, fe: int, ch: int, device: torch.device) -> None:
-    props = torch.cuda.get_device_properties(device)
-    smem_cap = getattr(props, "shared_memory_per_block_optin", 232448)
-    smem = lib_fn(fe, ch)
-    if smem > smem_cap:
-        raise ValueError(f"Fe={fe}, head width {ch} need {smem} bytes of "
-                         f"shared memory per block; the card allows "
-                         f"{smem_cap}")
 
 
 def attention_eproj_cuda(q: torch.Tensor, kv: torch.Tensor, ea: torch.Tensor,
@@ -216,7 +203,6 @@ def attention_eproj_cuda(q: torch.Tensor, kv: torch.Tensor, ea: torch.Tensor,
         q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, heads=heads)
     device = q.device
     lib = _lib(_KERNEL)
-    _check_smem(lib.attn_eproj_fwd_smem_bytes, fe, ch, device)
     out = torch.empty((n, hidden), dtype=torch.float32, device=device)
     mx = torch.empty((n, heads), dtype=torch.float32, device=device)
     den = torch.empty((n, heads), dtype=torch.float32, device=device)
@@ -262,12 +248,10 @@ def attention_eproj_bwd_cuda(q: torch.Tensor, kv: torch.Tensor,
     n, hidden, e_total, fe, ch = _check_inputs(
         q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, heads=heads,
         extra=extra)
-    if fe > 256 or e_total == 0:
-        raise ValueError(f"the backward kernel takes 1 <= E and Fe <= 256, "
-                         f"not E={e_total}, Fe={fe}")
+    if e_total == 0:
+        raise ValueError("the backward kernel takes E >= 1, not E=0")
     device = q.device
     lib = _lib(_KERNEL_BWD)
-    _check_smem(lib.attn_eproj_bwd_smem_bytes, fe, ch, device)
     dt = q.dtype
     dq = torch.empty((n, hidden), dtype=dt, device=device)
     dkv = torch.empty((e_total, 2 * hidden), dtype=dt, device=device)

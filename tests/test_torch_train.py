@@ -77,10 +77,14 @@ def _launches():
             sp.bwd_launches)
 
 
-def _step_parity(fx, jcfg, optimizer):
+def _step_parity(fx, jcfg, optimizer, tiny_grad=0.0):
     """One step of the JAX package's `make_train_step` (config `jcfg`) and of
     the port's `TrainStep` from the same parameters and batch: loss, step
-    metrics, grads and updated params."""
+    metrics, grads and updated params. With `tiny_grad` > 0, an updated
+    parameter whose JAX gradient is below it in magnitude is held only to
+    Adam's first-step bound (each side moves it by at most the LR, 1e-3):
+    there g / (|g| + eps) turns differences far inside the gradient
+    tolerance into another step."""
     hyper_kw = dict(feature_jitter_std=0.0, optimizer=optimizer)
     jhyper = jl.TrainHyper(**hyper_kw)
     batch = fx["batch"]
@@ -119,9 +123,17 @@ def _step_parity(fx, jcfg, optimizer):
         np.testing.assert_allclose(got[name].grad.numpy(), np.asarray(g),
                                    rtol=RTOL, atol=ATOL,
                                    err_msg=f"grad {name}")
-        np.testing.assert_allclose(got[name].detach().numpy(), np.asarray(p),
-                                   rtol=RTOL, atol=ATOL,
-                                   err_msg=f"param {name}")
+        if tiny_grad > 0:
+            keep = np.abs(np.asarray(g)) >= tiny_grad
+            diff = np.abs(got[name].detach().numpy() - np.asarray(p))
+            assert (diff[~keep] <= 2e-3 + ATOL).all(), f"param {name}"
+            np.testing.assert_allclose(got[name].detach().numpy()[keep],
+                                       np.asarray(p)[keep], rtol=RTOL,
+                                       atol=ATOL, err_msg=f"param {name}")
+        else:
+            np.testing.assert_allclose(got[name].detach().numpy(),
+                                       np.asarray(p), rtol=RTOL, atol=ATOL,
+                                       err_msg=f"param {name}")
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adam"])
