@@ -31,8 +31,11 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      their plain versions, f32 and bf16, dead rows exact zeros.
   4. serve: 256 synthetic MP-like graphs and a 5-member flagship ensemble
      (hidden 256, 4 layers, 4 heads, random weights from a seed) written to
-     disk, then `gnnep_tpu_torch.cli.predict` in float32 and bfloat16; the
-     launch counts show every conv went through the kernel, and member 0's
+     disk, then `gnnep_tpu_torch.cli.predict` in float32 and bfloat16; each
+     member's forward is a captured CUDA graph (its first batch runs
+     eagerly, every other one replays the capture: the replay counts show
+     it), the launch counts (each graph adds its capture's launches on
+     every replay) show every conv went through the kernel, and member 0's
      means on the card match the CPU plain forward. The same for a
      2-member ensemble on each other rung (`conv_impl='fused'` with
      `attn_eproj=False`: kernel 3; with `attn_fused=False`: kernel 1), whose
@@ -42,28 +45,39 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      card vs CPU means), and saved with that config and served through
      `cli.predict`, which repacks and so runs kernel 5, never kernel 8.
   5. train: `gnnep_tpu_torch.cli.train --conv-impl fused` on the same 256
-     graphs at flagship width, 2 members in float32 and 1 in bfloat16; every
-     step's loss is finite, kernels 6 and 7 ran 2·layers times per optimizer
-     step (the trainer reports its steps), and the written f32 ensemble
-     serves through `cli.predict`. Then one member for one epoch in float32
-     with `--no-attn-eproj` (kernels 4 and 7, 2·layers each per step) and
-     with `--no-attn-fused` (kernel 2 2·layers, kernel 7 4·layers: the kv
-     and the q gathers), the forward kernel 2·layers per train and eval
+     graphs at flagship width, 2 members × 3 epochs in float32 and 1 × 2
+     in bfloat16; every member's steps after its eager warm-up are replays
+     of its captured step, its validation forwards from the second epoch
+     replays of its captured forward; every step's loss is finite, kernels
+     6 and 7 ran 2·layers times per optimizer step (the trainer reports
+     its steps), and the written f32 ensemble serves through
+     `cli.predict`. Then one member for two epochs in float32 with
+     `--no-attn-eproj` (kernels 4 and 7, 2·layers each per step) and with
+     `--no-attn-fused` (kernel 2 2·layers, kernel 7 4·layers: the kv and
+     the q gathers), the forward kernel 2·layers per train and eval
      forward, kernels 5 and 6 never. Then `make_train_step` on the span
      config for one epoch, f32 and bf16: kernels 8 and 9 2·layers times
      per step, nothing else.
-  6. check: one train step on the card against the CPU plain step from the
-     same parameters and batch, dropout and jitter off, on each rung (span
-     included), and on the default rung at hidden 512 / 4 heads and 256 /
-     1 head (2 layers).
+  6. check: one eager train step on the card against the CPU plain step
+     from the same parameters and batch, dropout and jitter off, on each
+     rung (span included), and on the default rung at hidden 512 / 4 heads
+     and 256 / 1 head (2 layers); on each rung in f32 and bf16, a replay
+     of the captured step against the eager step from the same state at
+     the same limits; with dropout 0.15 and jitter 0.1 on, 8 replays
+     against 8 eager steps from one generator seed (another seed must
+     differ); and one K-step chunk of replays and 8 captured forwards
+     under `torch.cuda.set_sync_debug_mode('error')`.
   7. times: CUDA events, warm-up first. A kernel's (and its plain
      version's) device time per launch is the median of 30 chains of 10
-     back-to-back launches; its wall time per call, host work included, and
-     the forward's and the train step's wall times (on each rung) are
-     medians of 30 single calls. Kernels 6 and 9 also by CUDA kernel
-     (torch.profiler), beside their three products as `torch.matmul` calls
-     (a diagnostic floor the port never calls). Profiler passes split the forward's and
-     the train step's device time by kernel.
+     back-to-back launches; its wall time per call, host work included, is
+     the median of 30 single calls. The train step on each rung, eager and
+     captured side by side: wall ms per step of a K = 8 chunk from host
+     batches (the member loop's), graphs/s, device ms and busy share from
+     a profiled chunk; the forward the same over 16 served batches.
+     Kernels 6 and 9 also by CUDA kernel (torch.profiler), beside their
+     three products as `torch.matmul` calls (a diagnostic floor the port
+     never calls). In each profiled captured run the profiler's calls of
+     every kernel equal the launch counts.
   8. probes: the two dev probes as timing phases. The row gather (kernel
      11) bitwise on every case of the JAX probe, timed beside
      `torch.index_select`, also at the span kernels' own gather; the
@@ -102,6 +116,9 @@ RUNGS = {
                    gathers=2),
 }
 RUNG_MEMBERS = 2
+# the timed train chunk (the trainer's default --scan-steps) and the timed
+# run of served batches
+TIMING_K, TIMING_BATCHES = 8, 16
 REPS, WARMUP = 30, 5
 # kernel timing: launches per timed chain, and the card-side spin (about
 # 25 ms at the H100's clock) that covers the host's enqueuing of a chain
@@ -238,13 +255,22 @@ def _counter_module(name: str):
 
 
 def reset_counts() -> None:
+    """Every kernel's launch count and the graph replay counts to 0."""
+    from gnnep_tpu_torch.ops.cuda import graphs
     for name, (_, attr) in COUNTERS.items():
         setattr(_counter_module(name), attr, 0)
+    graphs.replays.update(train=0, eval=0)
 
 
 def read_counts() -> dict:
     return {name: getattr(_counter_module(name), attr)
             for name, (_, attr) in COUNTERS.items()}
+
+
+def read_replays() -> dict:
+    """Captured train steps and eval forwards replayed since the reset."""
+    from gnnep_tpu_torch.ops.cuda import graphs
+    return dict(graphs.replays)
 
 
 def phase_build():
@@ -1280,9 +1306,15 @@ def phase_serve(root: Path, data: Path, ens: Path, cfg, batches, dev, *,
                 contextlib.redirect_stdout(log):
             reset_counts()
             cli.main(argv)
-            counts = read_counts()
+            counts, replays = read_counts(), read_replays()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        # each member's first batch runs eagerly (the warm-up), every other
+        # one as a replay of its captured forward
+        if replays != {"train": 0, "eval": members * (len(batches) - 1)}:
+            raise AssertionError(f"{dtype}: {replays} replays, expected "
+                                 f"{members} members x {len(batches) - 1} "
+                                 "captured forwards")
         grew = counts.pop(kernel)
         if grew != expected:
             raise AssertionError(
@@ -1303,7 +1335,8 @@ def phase_serve(root: Path, data: Path, ens: Path, cfg, batches, dev, *,
         launches[dtype] = grew
         say("serve", rung=tag.strip("_") or "eproj", dtype=dtype,
             graphs=len(preds), batches=len(batches), members=members,
-            kernel=kernel, kernel_launches=grew, cli_seconds=f"{secs:.2f}",
+            kernel=kernel, kernel_launches=grew,
+            forward_replays=replays["eval"], cli_seconds=f"{secs:.2f}",
             mu_mean=f"{mu.mean():.4f}", sigma_mean=f"{sigma.mean():.4f}")
     # member 0, first batch: the card's f32 means against the CPU's plain
     # forward of the same checkpoint
@@ -1353,37 +1386,54 @@ def training_setup(data: Path, root: Path):
 
 
 def run_counted(fn):
-    """Run `fn` with every kernel's launch count set to 0 just before and
-    read just after → (fn's result, {kernel: launches}, per-step losses,
-    {"train": forwards, "eval": forwards}). The train step is wrapped to
-    keep each step's loss on the device (no extra synchronisation), and the
-    model's trunk to count its train and eval forwards; both wrappers are
-    removed afterwards."""
+    """Run `fn` with every kernel's launch count and the replay counts set
+    to 0 just before and read just after → (fn's result, {kernel:
+    launches}, per-step losses, {"train": forwards, "eval": forwards},
+    {"train": replays, "eval": replays}). The member loop's metric readback
+    is wrapped to keep each step's loss, and the model's trunk to count the
+    train and eval forwards it runs eagerly (a capture runs the trunk's
+    Python but nothing on the card, so it is not counted); a replay counts
+    as the forward it holds. Both wrappers are removed afterwards."""
+    import torch
     from gnnep_tpu_torch.models import alignn as pm
-    from gnnep_tpu_torch.train import loop
+    from gnnep_tpu_torch.train import member
     losses = []
     forwards = {"train": 0, "eval": 0}
-    orig, orig_trunk = loop.TrainStep.__call__, pm._shared_trunk
+    orig_sums, orig_trunk = member._metric_sums, pm._shared_trunk
 
-    def recording(self, *a, **k):
-        m = orig(self, *a, **k)
-        losses.append(m.loss_sum.detach())
-        return m
+    def recording(ms):
+        losses.append(ms.loss_sum.detach().reshape(-1))
+        return orig_sums(ms)
 
     def counting_trunk(*a, **k):
-        forwards["train" if k.get("train") else "eval"] += 1
+        if not torch.cuda.is_current_stream_capturing():
+            forwards["train" if k.get("train") else "eval"] += 1
         return orig_trunk(*a, **k)
 
-    loop.TrainStep.__call__ = recording
+    member._metric_sums = recording
     pm._shared_trunk = counting_trunk
     try:
         reset_counts()
         out = fn()
-        counts = read_counts()
+        counts, replays = read_counts(), read_replays()
     finally:
-        loop.TrainStep.__call__ = orig
+        member._metric_sums = orig_sums
         pm._shared_trunk = orig_trunk
-    return out, counts, losses, forwards
+    for kind, n in replays.items():
+        forwards[kind] += n
+    return out, counts, losses, forwards, replays
+
+
+def check_replays(what: str, replays: dict, steps: int, members: int):
+    """Every step after each member's warm-up ran as a replay of its
+    captured step, and the validation and test forwards replayed too."""
+    from gnnep_tpu_torch.train.loop import WARMUP_STEPS
+    want = steps - members * WARMUP_STEPS
+    if replays["train"] != want or replays["eval"] <= 0:
+        raise AssertionError(f"{what}: {replays} replays; expected "
+                             f"{want} train steps replayed ({steps} steps, "
+                             f"{members} members, {WARMUP_STEPS} eager "
+                             "warm-up each) and some eval forwards")
 
 
 def phase_train(root: Path, data: Path, layers: int):
@@ -1394,22 +1444,26 @@ def phase_train(root: Path, data: Path, layers: int):
     from gnnep_tpu_torch.cli import train as cli_train
     runs = {}
     for dtype, members, epochs in (("float32", TRAIN_MEMBERS, TRAIN_EPOCHS),
-                                   ("bfloat16", 1, 1)):
+                                   ("bfloat16", 1, 2)):
         out = root / f"trained_{dtype}"
         t0 = time.perf_counter()
         with open(root / f"train_{dtype}.txt", "w") as log, \
                 contextlib.redirect_stdout(log):
-            summary, counts, losses, _ = run_counted(
+            summary, counts, losses, forwards, replays = run_counted(
                 lambda: cli_train.main(train_argv(data, out, dtype, members,
                                                   epochs)))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         steps = summary["optimizer_steps"]
-        loss = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
+        loss = torch.cat(losses).cpu().numpy() if losses else np.zeros(0)
         if steps <= 0 or len(loss) != steps or not np.isfinite(loss).all():
             raise AssertionError(f"{dtype}: {steps} optimizer steps "
                                  f"reported, {len(loss)} losses recorded, "
                                  f"finite: {np.isfinite(loss).all()}")
+        check_replays(dtype, replays, steps, members)
+        if forwards["train"] != steps:
+            raise AssertionError(f"{dtype}: {forwards['train']} train "
+                                 f"forwards for {steps} optimizer steps")
         want = 2 * layers * steps
         for name in ("attn_eproj_bwd", "csr_segment_sum"):
             if counts[name] != want:
@@ -1426,9 +1480,11 @@ def phase_train(root: Path, data: Path, layers: int):
             if not (out / name).exists():
                 raise AssertionError(f"{dtype}: {name} not written")
         runs[dtype] = dict(counts=counts, steps=steps, seconds=secs,
-                           summary=summary)
+                           summary=summary, replays=replays)
         say("train", dtype=dtype, members=members, epochs=epochs,
-            optimizer_steps=steps, kernel_launches=json.dumps(counts),
+            optimizer_steps=steps, step_replays=replays["train"],
+            forward_replays=replays["eval"],
+            kernel_launches=json.dumps(counts),
             loss_sum_first=f"{loss[0]:.4f}", loss_sum_last=f"{loss[-1]:.4f}",
             test_mae=f"{summary['test_stats']['overall']['mae']:.3f}",
             coverage=f"{summary['conformal_coverage']['overall']:.3f}",
@@ -1456,8 +1512,9 @@ def phase_train(root: Path, data: Path, layers: int):
 
 
 def phase_train_rung(root: Path, data: Path, layers: int, rung: str):
-    """Trains one member for one epoch in f32 through the CLI on `rung`:
-    every loss finite; per optimizer step the rung's backward kernel
+    """Trains one member for two epochs in f32 through the CLI on `rung`,
+    its steps and (from the second epoch) its validation forwards as
+    replays of their captures: every loss finite; per optimizer step the rung's backward kernel
     2·layers times and kernel 7 2·layers times per gather (kv, and q on the
     external-logits rung); the rung's forward kernel 2·layers times per
     train and eval forward (the trainer's steps and its validation,
@@ -1469,17 +1526,18 @@ def phase_train_rung(root: Path, data: Path, layers: int, rung: str):
     t0 = time.perf_counter()
     with open(root / f"train_{rung}.txt", "w") as log, \
             contextlib.redirect_stdout(log):
-        summary, counts, losses, forwards = run_counted(
-            lambda: cli_train.main(train_argv(data, out, "float32", 1, 1)
+        summary, counts, losses, forwards, replays = run_counted(
+            lambda: cli_train.main(train_argv(data, out, "float32", 1, 2)
                                    + [spec["flag"]]))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     steps = summary["optimizer_steps"]
-    loss = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
+    loss = torch.cat(losses).cpu().numpy() if losses else np.zeros(0)
     if steps <= 0 or len(loss) != steps or not np.isfinite(loss).all():
         raise AssertionError(f"{rung}: {steps} optimizer steps reported, "
                              f"{len(loss)} losses recorded, finite: "
                              f"{np.isfinite(loss).all()}")
+    check_replays(rung, replays, steps, 1)
     if forwards["train"] != steps:
         raise AssertionError(f"{rung}: {forwards['train']} train forwards "
                              f"for {steps} optimizer steps")
@@ -1493,11 +1551,12 @@ def phase_train_rung(root: Path, data: Path, layers: int, rung: str):
                 f"{want.get(name, 0)} ({steps} steps, {forwards['eval']} "
                 f"eval forwards, {layers} layers)")
     say("train", rung=rung, flag=spec["flag"], dtype="float32", members=1,
-        epochs=1, optimizer_steps=steps, eval_forwards=forwards["eval"],
+        epochs=2, optimizer_steps=steps, eval_forwards=forwards["eval"],
+        step_replays=replays["train"], forward_replays=replays["eval"],
         kernel_launches=json.dumps(counts), loss_sum_first=f"{loss[0]:.4f}",
         loss_sum_last=f"{loss[-1]:.4f}", cli_seconds=f"{secs:.2f}")
     return dict(counts=counts, steps=steps, eval_forwards=forwards["eval"],
-                seconds=secs)
+                seconds=secs, replays=replays)
 
 
 def span_config(store_or_none, batches, **kw):
@@ -1547,10 +1606,14 @@ def phase_span_forward(ens: Path, batches, dev):
             counts = read_counts()
             _only(counts, {"attn_span_fwd": 2 * cfg.layers},
                   f"span forward {dtype} batch {i}")
+            if read_replays()["eval"] != int(i > 0):
+                raise AssertionError(f"span forward {dtype} batch {i}: "
+                                     f"{read_replays()} replays")
             if not (torch.isfinite(mean).all() and torch.isfinite(logvar).all()):
                 raise AssertionError(f"span forward {dtype} batch {i}: "
                                      "non-finite outputs")
-        say("span", forward=dtype, batches=len(dbs),
+        fwd.close()
+        say("span", forward=dtype, batches=len(dbs), replayed=len(dbs) - 1,
             edge_span64=cfg.edge_span64, lg_span64=cfg.lg_span64,
             attn_span_fwd_per_forward=2 * cfg.layers)
     fwd = make_forward()
@@ -1583,10 +1646,12 @@ def phase_span_train(setup, batches, dev):
     """`make_train_step` on the span config for one epoch over the
     trainer's batches, at flagship width, f32 and bf16, dropout and jitter
     at the trainer's defaults: per optimizer step every loss finite and
-    kernels 8 and 9 2·layers times each, nothing else."""
+    kernels 8 and 9 2·layers times each, nothing else; every step after
+    the warm-up a replay of the captured step."""
     import torch
     from gnnep_tpu_torch.models.alignn import DeviceBatch, init_alignn
-    from gnnep_tpu_torch.train.loop import TrainHyper, make_train_step
+    from gnnep_tpu_torch.train.loop import (WARMUP_STEPS, TrainHyper,
+                                            make_train_step)
     cfg = span_config(setup.store, batches)
     t = setup.transformer
     out = {}
@@ -1606,8 +1671,12 @@ def phase_span_train(setup, batches, dev):
             _only(counts, {"attn_span_fwd": 2 * cfg.layers,
                            "attn_span_bwd": 2 * cfg.layers},
                   f"span train step {dtype} {i}")
+            if read_replays()["train"] != int(i >= WARMUP_STEPS):
+                raise AssertionError(f"span train step {dtype} {i}: "
+                                     f"{read_replays()} replays")
             losses.append(float(m.loss_sum))
         secs = time.perf_counter() - t0
+        step.close()
         if not np.isfinite(losses).all():
             raise AssertionError(f"span train {dtype}: losses {losses}")
         out[dtype] = dict(steps=len(losses), counts=dict(
@@ -1635,30 +1704,11 @@ def _leaf_err(a, b, floor: float):
     return err, scale, 5e-3 * scale + floor
 
 
-def phase_check(setup, batches, dev, rung: str = "eproj", **width):
-    """One train step on the card against the CPU plain step from the same
-    parameters and batch, dropout and jitter off, at LRs 1e-3 / 5e-4, on
-    `rung` (the card step launches that rung's forward and backward kernel
-    2·layers times each; on 'span' with the batch's measured bounds), at
-    the flagship config or with `width`'s fields (hidden, heads, layers)
-    replacing its own:
-    - StepMetrics and every gradient element at rtol 5e-3 / atol 1e-4 (the
-      JAX package's model gradient tolerance), and each leaf's gradient and
-      Adam first moment within 5e-3 of that leaf's largest magnitude (plus
-      1e-5 and 1e-6: the noise of a theoretically zero gradient);
-    - each leaf's update p_new − p_old within 1e-2 of that leaf's largest
-      update (about the LR), leaving out only the elements whose clipped
-      gradient is about zero, where the two sides' difference could flip
-      Adam's first step or move it by a tenth of the limit; at most 10% of
-      them. A skipped
-      update, a flipped sign or the other group's LR is off by at least
-      half an update."""
-    import torch
-    from gnnep_tpu_torch.models.alignn import DeviceBatch, init_alignn
-    from gnnep_tpu_torch.train.loop import (ADAM_B1, ADAM_EPS, TrainHyper,
-                                            make_train_step)
+def check_config(setup, batches, rung: str, **width):
+    """(flagship config on `rung` with dropout off and `width`'s fields,
+    {fwd, bwd kernel}) for the step checks; on 'span' with the first
+    batch's measured bounds."""
     from gnnep_tpu_torch.utils.synth import flagship_config
-    rtol, atol = 5e-3, 1e-4
     store = setup.store
     spec = RUNGS.get(rung, dict(cfg={}, fwd="attn_eproj_fwd",
                                 bwd="attn_eproj_bwd"))
@@ -1671,61 +1721,74 @@ def phase_check(setup, batches, dev, rung: str = "eproj", **width):
                           angle_dim=store.angle_dim,
                           global_dim=store.global_scalar_dim + 230,
                           dropout=0.0, **spec["cfg"], **width)
-    hyper = TrainHyper(feature_jitter_std=0.0)
-    t = setup.transformer
-    steps, metrics, before = {}, {}, {}
-    for where in ("cuda", "cpu"):
-        model = init_alignn(np.random.default_rng(SEED + 99), cfg)
-        step = make_train_step(model, hyper, t.means, t.stds,
-                               dev if where == "cuda" else "cpu")
-        before[where] = [p.detach().cpu().clone() for p in step.params]
-        reset_counts()
-        m = step(DeviceBatch.from_batch(batches[0], step.params[0].device),
-                 None, CHECK_LR_MEAN, CHECK_LR_SIGMA)
-        metrics[where] = [float(x) for x in m]
-        steps[where] = step
-        if where == "cuda":
-            counts = read_counts()
-            if (counts[spec["fwd"]], counts[spec["bwd"]]) != (
-                    2 * cfg.layers, 2 * cfg.layers):
-                raise AssertionError(f"train step check on {rung}: launches "
-                                     f"{counts}")
-    if not all(torch.equal(a, b) for a, b in zip(before["cuda"],
-                                                 before["cpu"])):
-        raise AssertionError("train step check: the two models start from "
-                             "different parameters")
+    return cfg, spec
+
+
+def compare_steps(what: str, steps: dict, before: dict, metrics: dict):
+    """Hold the step 'card' to the step 'ref' after one step of each from
+    equal parameters and Adam state on the same batch (`before`: each
+    side's parameters before it, on the CPU; `metrics`: each side's
+    StepMetrics as floats):
+    - StepMetrics and every gradient element at rtol 5e-3 / atol 1e-4 (the
+      JAX package's model gradient tolerance), and each leaf's gradient and
+      Adam first moment within 5e-3 of that leaf's largest magnitude (plus
+      1e-5 and 1e-6: the noise of a theoretically zero gradient);
+    - each leaf's update p_new − p_old within 1e-2 of that leaf's largest
+      update (about the LR), leaving out only the elements whose
+      bias-corrected first moment is about zero, where the two sides'
+      difference could flip Adam's step or move it by a tenth of the limit;
+      at most 10% of them. A skipped update, a flipped sign or the other
+      group's LR is off by at least half an update.
+    Returns (the printed summary's fields, the worst leaf per kind, the
+    largest share of its limit any comparison reached)."""
+    import torch
+    from gnnep_tpu_torch.train.loop import ADAM_B1, ADAM_EPS
+    rtol, atol = 5e-3, 1e-4
+    top = 0.0
+
+    def over(share, message):
+        nonlocal top
+        top = max(top, share)
+        if share > 1.0:
+            raise AssertionError(f"{what} {message}")
+
     worst_metric = 0.0
     for name, a, b in zip(("loss_sum", "n_graphs", "abs_err_sum",
                            "sq_err_sum", "n_elements", "logvar_sum",
-                           "max_var"), metrics["cuda"], metrics["cpu"]):
-        if not np.isfinite(a) or abs(a - b) > atol + rtol * abs(b):
-            raise AssertionError(f"train step {name}: card {a} vs CPU {b}")
+                           "max_var"), metrics["card"], metrics["ref"]):
+        if not np.isfinite(a):
+            raise AssertionError(f"{what} {name}: {a}")
+        over(abs(a - b) / (atol + rtol * abs(b)), f"{name}: {a} vs {b}")
         worst_metric = max(worst_metric, abs(a - b))
-    names = [n for n, _ in steps["cpu"].model.named_parameters()]
-    card, ref = steps["cuda"], steps["cpu"]
+    card, ref = steps["card"], steps["ref"]
+    names = [n for n, _ in ref.model.named_parameters()]
+    count = int(ref.state.count)
+    if int(card.state.count) != count:
+        raise AssertionError(f"{what}: Adam counts {int(card.state.count)} "
+                             f"and {count}")
     # per kind: (leaf, err, leaf scale, err / limit) of the leaf nearest
     # its limit
     worst = {k: ("", 0.0, 0.0, 0.0) for k in ("grad", "mu", "update")}
     left_out = left_sign = total = 0
     for i, name in enumerate(names):
         gc = card.params[i].grad.detach().cpu().float()
-        gr = ref.params[i].grad.detach().float()
-        if not torch.allclose(gc, gr, rtol=rtol, atol=atol):
-            raise AssertionError(f"train step grad of {name}: card vs CPU "
-                                 f"differ by {(gc - gr).abs().max():.3e}")
-        checks = {
-            "grad": _leaf_err(gc, gr, 1e-5),
-            "mu": _leaf_err(card.state.mu[i].detach().cpu(),
-                            ref.state.mu[i].detach(), 1e-6)}
-        uc = card.params[i].detach().cpu().float() - before["cuda"][i].float()
-        ur = ref.params[i].detach().float() - before["cpu"][i].float()
-        # the clipped gradients Adam took in, from its first moments. Its
-        # first step is g / (|g| + eps): an element is left out where the
-        # two sides' difference d could flip its sign (|g| <= 4d) or move it
-        # by more than a tenth of the limit (d·eps / g² > 1e-3); one of
-        # exactly zero on both sides leaves only the decay
-        kc = card.state.mu[i].detach().cpu() / (1.0 - ADAM_B1)
-        kr = ref.state.mu[i].detach() / (1.0 - ADAM_B1)
+        gr = ref.params[i].grad.detach().cpu().float()
+        over(float(((gc - gr).abs() / (atol + rtol * gr.abs())).max()),
+             f"grad of {name}: differ by {(gc - gr).abs().max():.3e}")
+        mc = card.state.mu[i].detach().cpu()
+        mr = ref.state.mu[i].detach().cpu()
+        checks = {"grad": _leaf_err(gc, gr, 1e-5),
+                  "mu": _leaf_err(mc, mr, 1e-6)}
+        uc = card.params[i].detach().cpu().float() - before["card"][i].float()
+        ur = ref.params[i].detach().cpu().float() - before["ref"][i].float()
+        # the bias-corrected first moments Adam stepped by (on the first
+        # step, the clipped gradients). Its step is about m / (|m| + eps):
+        # an element is left out where the two sides' difference d could
+        # flip its sign (|m| <= 4d) or move it by more than a tenth of the
+        # limit (d·eps / m² > 1e-3); one of exactly zero on both sides
+        # leaves only the decay
+        kc = mc / (1.0 - ADAM_B1 ** count)
+        kr = mr / (1.0 - ADAM_B1 ** count)
         d = (kc - kr).abs()
         sign_open = kr.abs() <= 4.0 * d
         moved = d * ADAM_EPS > 1e-3 * kr * kr
@@ -1734,32 +1797,307 @@ def phase_check(setup, batches, dev, rung: str = "eproj", **width):
         left_sign += int((sign_open & ~keep).sum())
         total += keep.numel()
         err = (uc - ur)[keep].abs().max().item() if keep.any() else 0.0
-        scale = ur.abs().max().item()
-        checks["update"] = (err, scale, 1e-2 * scale)
+        leaf = ur.abs().max().item()
+        checks["update"] = (err, leaf, 1e-2 * leaf)
         for kind, (e, leaf_scale, lim) in checks.items():
-            if e > lim:
-                raise AssertionError(
-                    f"train step {kind} of {name}: card vs CPU differ by "
-                    f"{e:.3e}, above {lim:.3e} (leaf scale {leaf_scale:.3e})")
             share = e / lim if lim > 0 else 0.0
+            over(share, f"{kind} of {name}: differ by {e:.3e}, above "
+                        f"{lim:.3e} (leaf scale {leaf_scale:.3e})")
             if share >= worst[kind][3]:
                 worst[kind] = (name, e, leaf_scale, share)
     if left_out > 0.1 * total:
-        raise AssertionError(f"train step update: {left_out} of {total} "
-                             "elements have a gradient of about zero")
-    say("check", rung=rung, what="train_step_card_vs_cpu",
-        hidden=cfg.hidden, heads=cfg.heads, layers=cfg.layers, rtol=rtol,
-        atol=atol, lr_mean=CHECK_LR_MEAN, lr_sigma=CHECK_LR_SIGMA,
-        leaves=len(names),
-        loss_sum=f"{metrics['cuda'][0]:.6f}",
-        max_abs_err_metric=f"{worst_metric:.3e}",
-        update_elements_left_out=f"{left_out}/{total}",
-        of_them_sign_open=left_sign)
+        raise AssertionError(f"{what} update: {left_out} of {total} "
+                             "elements have a first moment of about zero")
+    return dict(leaves=len(names), adam_count=count,
+                loss_sum=f"{metrics['card'][0]:.6f}",
+                max_abs_err_metric=f"{worst_metric:.3e}",
+                update_elements_left_out=f"{left_out}/{total}",
+                of_them_sign_open=left_sign), worst, top
+
+
+def say_worst(rung, worst, **kw):
     for kind, (name, e, leaf_scale, share) in worst.items():
-        say("check", rung=rung, hidden=cfg.hidden, heads=cfg.heads, kind=kind,
-            nearest_limit_leaf=name,
+        say("check", rung=rung, **kw, kind=kind, nearest_limit_leaf=name,
             max_abs_err=f"{e:.3e}", leaf_scale=f"{leaf_scale:.3e}",
             share_of_limit=f"{share:.3f}")
+
+
+def phase_check(setup, batches, dev, rung: str = "eproj", **width):
+    """One eager train step on the card against the CPU plain step from
+    the same parameters and batch, dropout and jitter off, at LRs 1e-3 /
+    5e-4, on `rung` (the card step launches that rung's forward and
+    backward kernel 2·layers times each; on 'span' with the batch's
+    measured bounds), at the flagship config or with `width`'s fields
+    (hidden, heads, layers) replacing its own; `compare_steps` holds them."""
+    import torch
+    from gnnep_tpu_torch.models.alignn import DeviceBatch, init_alignn
+    from gnnep_tpu_torch.train.loop import (TrainHyper, TrainStep,
+                                            make_train_step)
+    cfg, spec = check_config(setup, batches, rung, **width)
+    hyper = TrainHyper(feature_jitter_std=0.0)
+    t = setup.transformer
+    steps, metrics, before = {}, {}, {}
+    for where in ("card", "ref"):
+        model = init_alignn(np.random.default_rng(SEED + 99), cfg)
+        step = (TrainStep(model.to(dev), hyper, t.means, t.stds)
+                if where == "card" else
+                make_train_step(model, hyper, t.means, t.stds, "cpu"))
+        before[where] = [p.detach().cpu().clone() for p in step.params]
+        reset_counts()
+        m = step(DeviceBatch.from_batch(batches[0], step.device), None,
+                 CHECK_LR_MEAN, CHECK_LR_SIGMA)
+        metrics[where] = [float(x) for x in m]
+        steps[where] = step
+        if where == "card":
+            counts = read_counts()
+            if (counts[spec["fwd"]], counts[spec["bwd"]]) != (
+                    2 * cfg.layers, 2 * cfg.layers):
+                raise AssertionError(f"train step check on {rung}: launches "
+                                     f"{counts}")
+    if not all(torch.equal(a, b) for a, b in zip(before["card"],
+                                                 before["ref"])):
+        raise AssertionError("train step check: the two models start from "
+                             "different parameters")
+    fields, worst, _ = compare_steps(f"train step card vs CPU ({rung})",
+                                     steps, before, metrics)
+    say("check", rung=rung, what="train_step_card_vs_cpu",
+        hidden=cfg.hidden, heads=cfg.heads, layers=cfg.layers, rtol=5e-3,
+        atol=1e-4, lr_mean=CHECK_LR_MEAN, lr_sigma=CHECK_LR_SIGMA, **fields)
+    say_worst(rung, worst, hidden=cfg.hidden, heads=cfg.heads)
+
+
+def rel_gaps(a, b, before_a, before_b, metrics_a, metrics_b) -> dict:
+    """How far step `a` landed from step `b` after one step each from equal
+    state: the largest relative difference of a StepMetrics field, and the
+    relative L2 distance of all gradients, all Adam first moments and all
+    updates (p_new − p_old), each over the whole model."""
+    import torch
+
+    def rel(xs, ys):
+        x = torch.cat([t.detach().cpu().float().flatten() for t in xs])
+        y = torch.cat([t.detach().cpu().float().flatten() for t in ys])
+        return float(torch.linalg.vector_norm(x - y)
+                     / torch.linalg.vector_norm(y).clamp_min(1e-30))
+
+    return dict(
+        metrics=max(abs(x - y) / max(abs(y), 1e-30)
+                    for x, y in zip(metrics_a, metrics_b)),
+        grad=rel([p.grad for p in a.params], [p.grad for p in b.params]),
+        mu=rel(a.state.mu, b.state.mu),
+        update=rel([p.detach().cpu() - q for p, q in zip(a.params, before_a)],
+                   [p.detach().cpu() - q for p, q in zip(b.params, before_b)]))
+
+
+def phase_check_captured(setup, batches, dev, rung: str, dtype: str):
+    """The card's captured step against its eager step, on `rung` in
+    `dtype`, dropout and jitter off: the captured step takes batch 0 as its
+    eager warm-up and batch 1 as its capture and first replay; then its
+    parameters go back to their initial values and its Adam moments and
+    count to zero (in place: the graph reads them where they are), and it
+    and eager steps from the same initial parameters take batch 2 as their
+    first optimizer step (for the captured step, its capture's second
+    replay; each launches the rung's forward and backward kernel 2·layers
+    times). In f32 `compare_steps` holds the replay to the eager step at
+    phase_check's limits. In bf16 the eager step does not meet those limits
+    against itself (float atomics in the pooling's `index_add_` and in
+    kernels 6 / 9 add in another order each run, and bf16 rounds the
+    difference up; one pair's largest elementwise gap swings by 3× from run
+    to run): there the replay's relative distance from the eager step
+    (`rel_gaps`: metrics, and the L2 distance of all gradients, moments and
+    updates) must be within twice the larger of two eager steps' own
+    distances from it, the metrics at least within one bf16 unit (2^-7)."""
+    import torch
+    from gnnep_tpu_torch.models.alignn import init_alignn
+    from gnnep_tpu_torch.train.loop import (GraphTrainStep, TrainHyper,
+                                            TrainStep, make_train_step)
+    cfg, spec = check_config(setup, batches, rung)
+    hyper = TrainHyper(feature_jitter_std=0.0, compute_dtype=dtype)
+    t = setup.transformer
+    card = make_train_step(init_alignn(np.random.default_rng(SEED + 98),
+                                       cfg), hyper, t.means, t.stds, dev)
+    if not isinstance(card, GraphTrainStep):
+        raise AssertionError("make_train_step on the card is not captured")
+    for b in batches[:2]:
+        card(b, None, CHECK_LR_MEAN, CHECK_LR_SIGMA)
+    init = init_alignn(np.random.default_rng(SEED + 98), cfg)
+    with torch.no_grad():
+        for p, q in zip(card.params, init.parameters()):
+            p.copy_(q)
+        for m in card.state.mu + card.state.nu:
+            m.zero_()
+        card.state.count.zero_()
+    f32 = dtype == "float32"
+    steps = {"card": card}
+    for k in ("ref", "ref2") if f32 else ("ref", "ref2", "ref3"):
+        steps[k] = TrainStep(init_alignn(np.random.default_rng(SEED + 98),
+                                         cfg).to(dev), hyper, t.means, t.stds)
+    before = {k: [p.detach().cpu().clone() for p in s.params]
+              for k, s in steps.items()}
+    metrics = {}
+    for k, s in steps.items():
+        reset_counts()
+        metrics[k] = [float(x) for x in s(batches[2], None, CHECK_LR_MEAN,
+                                          CHECK_LR_SIGMA)]
+        counts, replays = read_counts(), read_replays()
+        want = (2 * cfg.layers, 2 * cfg.layers, int(k == "card"))
+        if (counts[spec["fwd"]], counts[spec["bwd"]],
+                replays["train"]) != want:
+            raise AssertionError(f"captured step check on {rung} {dtype} "
+                                 f"({k}): launches {counts}, replays "
+                                 f"{replays}")
+
+    def gaps(k):
+        return rel_gaps(steps[k], steps["ref"], before[k], before["ref"],
+                        metrics[k], metrics["ref"])
+
+    got = gaps("card")
+    spread = {name: max(gaps(k)[name] for k in steps if k.startswith("ref")
+                        and k != "ref") for name in got}
+    if f32:
+        fields, worst, share = compare_steps(
+            f"captured vs eager step ({rung}, {dtype})",
+            {"card": card, "ref": steps["ref"]}, before, metrics)
+        verdict = dict(rtol=5e-3, atol=1e-4,
+                       share_of_limit=f"{share:.3f}", **fields)
+    else:
+        limit = {name: 2.0 * v + 1e-6 for name, v in spread.items()}
+        # a StepMetrics field is one sum or max, not an average over the
+        # model: it may move by one bf16 unit (max_var is exp of one bf16
+        # logvar), whatever one pair of eager steps showed
+        limit["metrics"] = max(limit["metrics"], 2.0 ** -7)
+        bad = {n: v for n, v in got.items() if v > limit[n]}
+        if bad:
+            raise AssertionError(f"captured vs eager step ({rung}, {dtype}): "
+                                 f"{bad} beyond twice the eager steps' own "
+                                 f"spread {spread}")
+        verdict = dict(limit="2x_eager_spread", adam_count=1,
+                       loss_sum=f"{metrics['card'][0]:.6f}")
+    card.close()
+    say("check", rung=rung, dtype=dtype, what="captured_step_vs_eager",
+        **verdict,
+        **{f"captured_rel_{n}": f"{v:.3e}" for n, v in got.items()},
+        **{f"eager_rel_{n}": f"{v:.3e}" for n, v in spread.items()})
+    if f32:
+        say_worst(rung, worst, dtype=dtype)
+
+
+def full_batches(batches):
+    """The batches of BATCH real graphs: an epoch's short last batch is not
+    the step that sets throughput."""
+    return [b for b in batches
+            if int(np.asarray(b.graph_mask).sum()) == BATCH]
+
+
+def phase_check_dropout(setup, batches, dev):
+    """Dropout 0.15 and jitter 0.1 on (the trainer's defaults), eproj rung,
+    f32: the captured step (one eager warm-up, then 8 replays) and 9 eager
+    steps over the same batches from one generator seed agree step by step
+    at phase_check's metric limits, or within twice the gap of a second
+    eager run from that seed where that is wider (float atomics make two
+    eager 9-step trajectories drift apart, by up to half the limits on an
+    H100), and the generators end in the same state; 9 eager steps
+    from another seed must be ten times that far off (the masks do move
+    the metrics). A graph replaying its capture-time masks would fail the
+    first check."""
+    import torch
+    from gnnep_tpu_torch.models.alignn import init_alignn
+    from gnnep_tpu_torch.train.loop import (TrainHyper, TrainStep,
+                                            make_train_step)
+    from gnnep_tpu_torch.utils.synth import flagship_config
+    store, t = setup.store, setup.transformer
+    cfg = flagship_config(node_dim=store.node_dim, edge_dim=store.edge_dim,
+                          angle_dim=store.angle_dim,
+                          global_dim=store.global_scalar_dim + 230,
+                          dropout=0.15)
+    hyper = TrainHyper(feature_jitter_std=0.1)
+    full = full_batches(batches)
+    seq = [full[i % len(full)] for i in range(9)]
+    rows, gens = {}, {}
+    for kind, seed in (("captured", SEED), ("eager", SEED),
+                       ("eager2", SEED), ("other_seed", SEED + 1)):
+        model = init_alignn(np.random.default_rng(SEED + 97), cfg)
+        step = (make_train_step(model, hyper, t.means, t.stds, dev)
+                if kind == "captured" else
+                TrainStep(model.to(dev), hyper, t.means, t.stds))
+        gens[kind] = torch.Generator(device=dev).manual_seed(seed)
+        reset_counts()
+        ms = step.run(seq, gens[kind], 1e-4, 1e-4)
+        rows[kind] = torch.stack(list(ms), 1).double().cpu().numpy()
+        if kind == "captured":
+            if read_replays()["train"] != 8:
+                raise AssertionError(f"dropout check: {read_replays()} "
+                                     "replays, expected 8")
+            step.close()
+    rtol, atol = 5e-3, 1e-4
+
+    def gap(a, b):
+        """Largest |a − b| over the limit, over every step and metric."""
+        return float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+
+    same, drift, other = (gap(rows[k], rows["eager"])
+                          for k in ("captured", "eager2", "other_seed"))
+    limit = max(1.0, 2.0 * drift)
+    states_equal = torch.equal(gens["captured"].get_state(),
+                               gens["eager"].get_state())
+    say("check", what="captured_vs_eager_dropout_jitter", dropout=0.15,
+        jitter=0.1, steps=9, replays=8,
+        worst_share_of_limit=f"{same:.3f}",
+        eager_vs_eager_share_of_limit=f"{drift:.3f}",
+        limit=f"{limit:.3f}",
+        other_seed_worst_share_of_limit=f"{other:.3f}",
+        generator_states_equal=states_equal,
+        loss_sum_captured=",".join(f"{x:.4f}" for x in rows["captured"][:, 0]),
+        loss_sum_eager=",".join(f"{x:.4f}" for x in rows["eager"][:, 0]))
+    if same > limit or not states_equal:
+        raise AssertionError("dropout check: the captured step's metrics or "
+                             "generator state differ from the eager step's "
+                             f"(worst {same:.3f} of the limit, allowed "
+                             f"{limit:.3f}, states equal {states_equal})")
+    if other <= 10.0 * limit:
+        raise AssertionError("dropout check: another seed's steps agree "
+                             "with this seed's; the check cannot see the "
+                             "masks")
+
+
+def phase_sync(setup, batches, dev):
+    """One K = 8 chunk of the captured step and 8 captured forwards, from
+    host batches, under `torch.cuda.set_sync_debug_mode('error')`: nothing
+    in them makes the host wait on the card (the readbacks come after)."""
+    import torch
+    from gnnep_tpu_torch.models.alignn import init_alignn
+    from gnnep_tpu_torch.train.loop import (TrainHyper, make_forward,
+                                            make_train_step)
+    from gnnep_tpu_torch.utils.synth import flagship_config
+    store, t = setup.store, setup.transformer
+    cfg = flagship_config(node_dim=store.node_dim, edge_dim=store.edge_dim,
+                          angle_dim=store.angle_dim,
+                          global_dim=store.global_scalar_dim + 230)
+    step = make_train_step(init_alignn(np.random.default_rng(SEED + 96),
+                                       cfg), TrainHyper(), t.means, t.stds,
+                           dev)
+    full = full_batches(batches)
+    seq = [full[i % len(full)] for i in range(TIMING_K)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    forward = make_forward()
+    step.run(seq, gen, 1e-4, 1e-4)           # warm-up and capture
+    for b in full[:2]:
+        forward(step.model, b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ms = step.run(seq, gen)
+        outs = [forward(step.model, b) for b in seq]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    loss = ms.loss_sum.cpu().numpy()
+    finite = bool(np.isfinite(loss).all()
+                  and all(torch.isfinite(o[0]).all() for o in outs))
+    step.close()
+    forward.close()
+    if not finite:
+        raise AssertionError("sync check: non-finite outputs")
+    say("check", what="no_host_sync", mode="error", train_steps=len(seq),
+        forwards=len(outs), loss_sum_mean=f"{loss.mean():.4f}")
 
 
 # --------------------------------------------------------------- phase 7
@@ -1798,6 +2136,15 @@ def _fwd_bound_ms(nbytes: float, proj_ops: float, item: int):
 
 
 def phase_times(flagship, batches, ens, dev):
+    """Kernel 5 at the flagship shapes; then member 0's eval forward, f32
+    and bf16, eager and captured side by side over TIMING_BATCHES served
+    batches from the host, read back once (the serving path's loop): wall
+    ms per batch, graphs/s, and one pass's profile (device ms per batch,
+    busy share; the captured pass's kernel calls held to the launch
+    counts). The captured forward's first two calls (eager warm-up, then
+    capture and replay) are timed apart: what a request pays once per
+    member."""
+    import torch
     from gnnep_tpu_torch.models.alignn import DeviceBatch
     from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
     from gnnep_tpu_torch.train.artifacts import load_member
@@ -1815,24 +2162,43 @@ def phase_times(flagship, batches, ens, dev):
                                            heads=c["heads"]),
         eproj_bound_ms)
     model = load_member(ens / "model_0.npz", dev)
-    dbs = [DeviceBatch.from_batch(b, dev) for b in batches]
-    real = [int(np.asarray(b.graph_mask).sum()) for b in batches]
+    seq = [batches[i % len(batches)] for i in range(TIMING_BATCHES)]
+    real = float(np.mean([np.asarray(b.graph_mask).sum() for b in seq]))
+    forwards = {}
     for dtype in ("float32", "bfloat16"):
-        fwd = make_forward(compute_dtype=dtype)
         run = cast_model(model, dtype)
-        state = {"i": 0}
-
-        def one():
-            fwd(run, dbs[state["i"] % len(dbs)])
-            state["i"] += 1
-
-        ms = median_ms(one)
-        say("times", forward=dtype, ms_per_batch=f"{ms:.3f}",
-            graphs_per_batch=f"{np.mean(real):.1f}",
-            graphs_per_s=f"{np.mean(real) / ms * 1e3:.0f}")
-        profile_run(lambda: [fwd(run, db) for db in dbs], "forward", dtype,
-                    len(dbs))
-    return cases
+        fwd = make_forward(compute_dtype=dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in seq[:2]:
+            fwd(run, b)[0].cpu()
+        first_two = (time.perf_counter() - t0) * 1e3
+        passes = {
+            "eager": lambda: torch.stack([torch.stack(fwd.eager(
+                run, DeviceBatch.from_batch(b, dev))) for b in seq]).cpu(),
+            "captured": lambda: torch.stack([torch.stack(fwd(run, b))
+                                             for b in seq]).cpu()}
+        forwards[dtype] = {}
+        for kind, one_pass in passes.items():
+            ms = chunk_ms(one_pass)[0] / len(seq)
+            busy, dev_ms = profile_run(one_pass, f"forward_{kind}", dtype,
+                                       len(seq), counted=kind == "captured")
+            forwards[dtype][kind] = dict(ms_per_batch=ms,
+                                         graphs_per_s=real / ms * 1e3,
+                                         device_ms_per_batch=dev_ms,
+                                         busy_share=busy)
+        fwd.close()
+        e, c = forwards[dtype]["eager"], forwards[dtype]["captured"]
+        forwards[dtype]["captured"]["first_two_calls_ms"] = first_two
+        say("times", forward=dtype, batches=len(seq),
+            graphs_per_batch=f"{real:.1f}", side_by_side="eager|captured",
+            ms_per_batch=f"{e['ms_per_batch']:.3f}|{c['ms_per_batch']:.3f}",
+            graphs_per_s=f"{e['graphs_per_s']:.0f}|{c['graphs_per_s']:.0f}",
+            device_ms_per_batch=f"{e['device_ms_per_batch']:.3f}|"
+                                f"{c['device_ms_per_batch']:.3f}",
+            busy_share=f"{e['busy_share']:.3f}|{c['busy_share']:.3f}",
+            captured_first_two_calls_ms=f"{first_two:.1f}")
+    return cases, forwards
 
 
 def eproj_bwd_bound_ms(case):
@@ -2176,15 +2542,19 @@ def kernel_times(name, flagship, run_kernel, run_plain, bound_fn,
 
 
 def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
-    """Kernels 6 and 7 at the flagship shapes, then the train step's wall
-    time per step (batches already on the card) and its profile, on each
-    rung; the span rung's beside the default's is the counterpart of
+    """Kernels 6 and 7 at the flagship shapes, then on each rung, f32 and
+    bf16, the eager step and the captured step side by side: the wall time
+    per step of a K-step chunk from host batches (the member loop's),
+    graphs/s, and one chunk's profile (device ms per step, busy share; the
+    captured chunk's kernel calls held to the launch counts). The span
+    rung's beside the default's is the counterpart of
     `scripts_dev/exp_span.py`'s A/B."""
     import torch
     from gnnep_tpu_torch.models.alignn import DeviceBatch, init_alignn
     from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
     from gnnep_tpu_torch.ops.cuda import segment_sum as ss
-    from gnnep_tpu_torch.train.loop import TrainHyper, make_train_step
+    from gnnep_tpu_torch.train.loop import (TrainHyper, TrainStep,
+                                            make_train_step)
     from gnnep_tpu_torch.utils.synth import flagship_config
 
     bwd_args = {id(case): bwd_inputs(case) for case, _ in bwd_flag.values()}
@@ -2213,12 +2583,8 @@ def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
         library=index_add)
 
     store = setup.store
-    # full batches only: an epoch's short last batch is not the step that
-    # sets throughput
-    full = [b for b in batches
-            if int(np.asarray(b.graph_mask).sum()) == BATCH]
-    dbs = [DeviceBatch.from_batch(b, dev) for b in full]
-    real = [BATCH] * len(full)
+    full = full_batches(batches)
+    seq = [full[i % len(full)] for i in range(TIMING_K)]
     steps = {}
     nsp, bsp = span_bounds(full)
     for rung in ("eproj", *RUNGS, "span"):
@@ -2231,49 +2597,103 @@ def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
                               **rung_cfg)
         steps[rung] = {}
         for dtype in ("float32", "bfloat16"):
-            step = make_train_step(
-                init_alignn(np.random.default_rng(SEED + 7), cfg),
-                TrainHyper(compute_dtype=dtype), setup.transformer.means,
-                setup.transformer.stds, dev)
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(SEED)
-            state = {"i": 0}
+            steps[rung][dtype] = {}
+            for kind in ("eager", "captured"):
+                model = init_alignn(np.random.default_rng(SEED + 7), cfg)
+                hyper = TrainHyper(compute_dtype=dtype)
+                step = (TrainStep(model.to(dev), hyper,
+                                  setup.transformer.means,
+                                  setup.transformer.stds)
+                        if kind == "eager" else
+                        make_train_step(model, hyper, setup.transformer.means,
+                                        setup.transformer.stds, dev))
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(SEED)
 
-            def one():
-                step(dbs[state["i"] % len(dbs)], gen, 1e-4, 1e-4)
-                state["i"] += 1
+                def chunk():
+                    # the member loop's chunk: K steps from host batches,
+                    # the metrics read back once
+                    return step.run(seq, gen, 1e-4, 1e-4).loss_sum.cpu()
 
-            torch.cuda.reset_peak_memory_stats(dev)
-            ms = median_ms(one)
-            rec = {"ms_per_step": ms,
-                   "graphs_per_s": float(np.mean(real) / ms * 1e3)}
-            say("times", rung=rung, train_step=dtype, ms_per_step=f"{ms:.3f}",
-                graphs_per_step=f"{np.mean(real):.1f}",
-                graphs_per_s=f"{np.mean(real) / ms * 1e3:.0f}",
-                peak_mem_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}")
-            rec["busy_share"], rec["device_ms_per_step"] = profile_run(
-                lambda: [step(db, gen, 1e-4, 1e-4) for db in dbs],
-                f"train_step_{rung}", dtype, len(dbs))
-            steps[rung][dtype] = rec
+                torch.cuda.reset_peak_memory_stats(dev)
+                ms, first = chunk_ms(chunk)
+                ms /= TIMING_K
+                rec = {"ms_per_step": ms, "first_chunk_ms": first,
+                       "graphs_per_s": float(BATCH / ms * 1e3)}
+                rec["busy_share"], rec["device_ms_per_step"] = profile_run(
+                    chunk, f"train_step_{rung}_{kind}", dtype, TIMING_K,
+                    counted=kind == "captured")
+                say("times", rung=rung, train_step=dtype, kind=kind,
+                    k=TIMING_K, ms_per_step=f"{ms:.3f}",
+                    first_chunk_ms=f"{first:.1f}",
+                    graphs_per_step=BATCH,
+                    graphs_per_s=f"{rec['graphs_per_s']:.0f}",
+                    device_ms_per_step=f"{rec['device_ms_per_step']:.3f}",
+                    busy_share=f"{rec['busy_share']:.3f}",
+                    peak_mem_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}")
+                step.close()
+                steps[rung][dtype][kind] = rec
+            e, c = steps[rung][dtype]["eager"], steps[rung][dtype]["captured"]
+            say("times", rung=rung, train_step=dtype,
+                side_by_side="eager|captured",
+                ms_per_step=f"{e['ms_per_step']:.3f}|{c['ms_per_step']:.3f}",
+                graphs_per_s=f"{e['graphs_per_s']:.0f}|"
+                             f"{c['graphs_per_s']:.0f}",
+                device_ms_per_step=f"{e['device_ms_per_step']:.3f}|"
+                                   f"{c['device_ms_per_step']:.3f}",
+                busy_share=f"{e['busy_share']:.3f}|{c['busy_share']:.3f}")
     return bwd, seg, steps
 
 
-def profile_run(run_all, label: str, dtype: str, n_calls: int):
+def chunk_ms(fn, reps: int = 5):
+    """(median wall ms of `fn`, which ends in a readback, on the host's
+    clock over `reps` calls; the ms of the first call before them, which
+    warms up, and on a captured path also captures)."""
+    import torch
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:])), times[0]
+
+
+# each wrapper's launch count against the calls of the CUDA kernel that
+# each of its launches runs once (kernels 8 and 9 are kernels 5 and 6's
+# kernels with a flag, so their calls add up)
+PROFILED = {r"attn_eproj_fwd_kernel": ("attn_eproj_fwd", "attn_span_fwd"),
+            r"attn_eproj_bwd_attn_kernel": ("attn_eproj_bwd",
+                                            "attn_span_bwd"),
+            r"csr_segment_sum_kernel": ("csr_segment_sum",),
+            r"attn_fwd_kernel": ("attn_fwd",),
+            r"attn_bwd(_wide)?_kernel": ("attn_bwd",),
+            r"softmax_aggregate_fwd_kernel": ("softmax_aggregate_fwd",),
+            r"softmax_aggregate_bwd_kernel": ("softmax_aggregate_bwd",)}
+
+
+def profile_run(run_all, label: str, dtype: str, n_calls: int,
+                counted: bool = False):
     """Device time by kernel over one pass of `run_all` (n_calls forwards
     or train steps), from torch.profiler: the device's busy share of the
     traced wall time (the tracer's own host cost inflates the wall time, so
     this share is a lower bound) and the kernels that take the most of it.
-    Returns (busy share, device ms per call)."""
+    With `counted`, the launch counts are set to 0 just before the traced
+    pass and read just after, and each wrapper's count must equal the
+    profiler's calls of its kernel (`PROFILED`). Returns (busy share,
+    device ms per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run_all()
     torch.cuda.synchronize()
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_all()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    counts = read_counts()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -2292,6 +2712,24 @@ def profile_run(run_all, label: str, dtype: str, n_calls: int):
     for e in events[:8]:
         say("profile", run=label, kernel=repr(e.key[:60]), calls=e.count,
             device_ms_per_call=f"{dev_us(e) / 1e3 / n_calls:.3f}")
+    if counted:
+        seen = {}
+        for pattern, names in PROFILED.items():
+            calls = sum(e.count for e in events
+                        if re.search(rf"\b{pattern}\b", e.key))
+            launched = sum(counts[n] for n in names)
+            seen[pattern] = (calls, launched)
+            if calls != launched:
+                raise AssertionError(
+                    f"{label} {dtype}: the profiler saw {calls} calls of "
+                    f"{pattern}, the launch counts say {launched} "
+                    f"({counts})")
+        if not any(launched for _, launched in seen.values()):
+            raise AssertionError(f"{label} {dtype}: no kernel launched")
+        say("profile", run=label, dtype=dtype,
+            profiler_calls_equal_launch_counts=",".join(
+                f"{'+'.join(PROFILED[p])}={n}" for p, (_, n) in seen.items()
+                if n))
     return busy_us / wall_us, busy_us / 1e3 / n_calls
 
 
@@ -2336,11 +2774,15 @@ def main() -> int:
         _, span_train = phase_span_train(setup, train_batches, dev)
         for rung in ("eproj", *RUNGS, "span"):
             phase_check(setup, train_batches, dev, rung)
+            for dtype in ("float32", "bfloat16"):
+                phase_check_captured(setup, train_batches, dev, rung, dtype)
         # the widths beyond the kernels' old limits, depth cut to 2 layers
         for hidden, heads in WIDTHS[:2]:
             phase_check(setup, train_batches, dev, "eproj", hidden=hidden,
                         heads=heads, layers=2)
-        cases = phase_times(flagship, batches, ens, dev)
+        phase_check_dropout(setup, train_batches, dev)
+        phase_sync(setup, train_batches, dev)
+        cases, forward_times = phase_times(flagship, batches, ens, dev)
         rung_cases = phase_rung_times(rung_flag)
         span_cases = phase_span_times(span_flag)
         bwd_cases, seg_cases, step_times = phase_train_times(
@@ -2394,12 +2836,18 @@ def main() -> int:
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "train": {
         d: {"optimizer_steps": r["steps"], "cli_seconds": r["seconds"],
-            **step_times["eproj"][d]} for d, r in runs.items()},
+            "replays": r["replays"], "k": TIMING_K,
+            **step_times["eproj"][d]["eager"],
+            **{f"captured_{k}": v
+               for k, v in step_times["eproj"][d]["captured"].items()}}
+        for d, r in runs.items()},
         "train_rungs": {
             rung: {"optimizer_steps": r["steps"], "cli_seconds": r["seconds"],
                    "eval_forwards": r["eval_forwards"],
+                   "replays": r["replays"],
                    "step_times": step_times[rung]}
             for rung, r in rung_train.items()},
+        "forward": forward_times,
         "span": {"edge_span64": span_cfg.edge_span64,
                  "lg_span64": span_cfg.lg_span64,
                  "serve_launches_attn_eproj_fwd": span_serve,

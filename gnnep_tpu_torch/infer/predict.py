@@ -97,9 +97,10 @@ class Ensemble:
                 verify_win64(batches, cfg)
             run = with_config(cast_model(model, compute_dtype), cfg)
             mean_z, sigma_z, ys, order = collect_predictions(
-                forward, run, batches, self.device)
+                forward, run, batches)
             member_means.append(mean_z)
             member_vars.append(sigma_z ** 2)
+        forward.close()
         return format_mixture_results(member_means, member_vars, order, ys,
                                       self.transformer, store)
 

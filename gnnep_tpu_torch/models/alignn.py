@@ -228,7 +228,12 @@ class DeviceBatch:
     """The fields of a `GraphBatch` that the forwards and the loss read, as
     tensors on one device: features, targets and masks f32, index arrays
     int64, CSR pointers, the source-sorted CSR index and the span starts
-    int32 (the span starts None where the `GraphBatch` has none)."""
+    int32 (the span starts None where the `GraphBatch` has none).
+
+    `from_batch` moves one batch to the device in new tensors. A captured
+    program needs fixed addresses instead: `allocate` makes a batch
+    budget's buffers once, and `copy_from` refills them with each batch of
+    that budget (every batch one budget packs has the same shapes)."""
 
     nodes: torch.Tensor
     node_graph: torch.Tensor
@@ -255,6 +260,10 @@ class DeviceBatch:
     n_graphs: int
     node_span_lo: Optional[torch.Tensor] = None
     bond_span_lo: Optional[torch.Tensor] = None
+    # pinned host copies of the fields for `copy_from` (two sets, used in
+    # turn) and the event after each set's last copy to the card
+    _staging: Optional[list] = dataclasses.field(default=None, init=False,
+                                                 repr=False, compare=False)
 
     _FLOAT = ("nodes", "edge_attr", "edge_mask", "lg_attr", "lg_mask",
               "globals_", "y", "y_mask", "weight", "graph_mask")
@@ -265,17 +274,72 @@ class DeviceBatch:
     _SPAN = ("node_span_lo", "bond_span_lo")
 
     @classmethod
+    def _dtypes(cls, batch):
+        """(name, dtype) of every tensor field `batch` carries."""
+        out = [(n, torch.float32) for n in cls._FLOAT]
+        out += [(n, torch.int64) for n in cls._INDEX]
+        out += [(n, torch.int32) for n in cls._INT32]
+        return out + [(n, torch.int32) for n in cls._SPAN
+                      if getattr(batch, n, None) is not None]
+
+    @classmethod
     def from_batch(cls, batch, device) -> "DeviceBatch":
         def put(name, dtype):
-            arr = np.ascontiguousarray(getattr(batch, name), dtype=dtype)
+            arr = np.ascontiguousarray(getattr(batch, name),
+                                       dtype=_NUMPY[dtype])
             return torch.from_numpy(arr).to(device, non_blocking=True)
 
-        fields = {n: put(n, np.float32) for n in cls._FLOAT}
-        fields.update({n: put(n, np.int64) for n in cls._INDEX})
-        fields.update({n: put(n, np.int32) for n in cls._INT32})
-        fields.update({n: put(n, np.int32) for n in cls._SPAN
-                       if getattr(batch, n, None) is not None})
+        fields = {n: put(n, dt) for n, dt in cls._dtypes(batch)}
         return cls(**fields, n_graphs=int(np.asarray(batch.y).shape[0]))
+
+    @classmethod
+    def allocate(cls, like, device) -> "DeviceBatch":
+        """Uninitialised buffers on `device` for the batches of `like`'s
+        budget (a `GraphBatch` or a `DeviceBatch`), span fields where it
+        has them."""
+        fields = {n: torch.empty(tuple(getattr(like, n).shape), dtype=dt,
+                                 device=device)
+                  for n, dt in cls._dtypes(like)}
+        return cls(**fields, n_graphs=int(like.y.shape[0]))
+
+    def copy_from(self, batch) -> None:
+        """Fill the buffers with `batch` in place, every `data_ptr()` kept:
+        a `GraphBatch` through pinned host copies (on a CUDA device) with
+        asynchronous copies on the current stream, a `DeviceBatch` by device
+        copies. Raises where `batch` is not of this budget."""
+        names = self._dtypes(batch)
+        if (len(names) != len(self._dtypes(self))
+                or int(batch.y.shape[0]) != self.n_graphs
+                or any(tuple(getattr(batch, n).shape)
+                       != tuple(getattr(self, n).shape) for n, _ in names)):
+            raise ValueError("the batch is not of this buffer's budget: its "
+                             "shapes or span fields differ")
+        if isinstance(batch, DeviceBatch):
+            for n, _ in names:
+                getattr(self, n).copy_(getattr(batch, n))
+            return
+        if self.nodes.device.type != "cuda":
+            for n, dt in names:
+                getattr(self, n).copy_(torch.from_numpy(np.ascontiguousarray(
+                    getattr(batch, n), dtype=_NUMPY[dt])))
+            return
+        if self._staging is None:
+            self._staging = [({n: torch.empty(tuple(getattr(self, n).shape),
+                                              dtype=dt, pin_memory=True)
+                               for n, dt in names}, torch.cuda.Event())
+                             for _ in range(2)]
+        host, done = self._staging[0]
+        self._staging.reverse()
+        # this set's previous copies to the card must have read it
+        done.synchronize()
+        for n, _ in names:
+            np.copyto(host[n].numpy(), getattr(batch, n), casting="unsafe")
+            getattr(self, n).copy_(host[n], non_blocking=True)
+        done.record()
+
+
+_NUMPY = {torch.float32: np.float32, torch.int64: np.int64,
+          torch.int32: np.int32}
 
 
 def _shared_trunk(model: Alignn, batch: DeviceBatch,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..segment import segment_sum
@@ -37,7 +38,7 @@ bwd_launches = 0
 
 def inv_sqrt(ch: int) -> float:
     """1/√ch rounded once to f32, as the kernels' constant is."""
-    return float(torch.tensor(1.0 / ch ** 0.5, dtype=torch.float32))
+    return float(np.float32(1.0 / ch ** 0.5))
 
 
 def edge_logits(q: torch.Tensor, k: torch.Tensor, dst: torch.Tensor,

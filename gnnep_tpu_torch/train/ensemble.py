@@ -147,9 +147,10 @@ def collect_ensemble(members: Sequence[Alignn], batches, floor: float,
     means, variances, targets = [], [], None
     for model in members:
         mean_z, sigma_z, targets, _ = collect_predictions(
-            forward, model.to(device), batches, device)
+            forward, model.to(device), batches)
         means.append(mean_z)
         variances.append(sigma_z ** 2)
+    forward.close()
     return np.stack(means), np.stack(variances), targets
 
 

@@ -14,6 +14,12 @@ Under bf16 the f32 parameters are cast inside the autograd graph each step
 (the JAX package's `_cast_for_compute`), so gradients and Adam state stay
 f32. Every dropout and jitter draw comes from one `torch.Generator` on the
 device.
+
+On the card the step and the eval forward are captured CUDA graphs, the
+counterpart of the JAX package's jitted and scanned programs
+(`GraphTrainStep`, `Forward`): each batch is copied into static buffers and
+the capture replayed; the optimizer's count and LRs are device tensors, so a
+replay reads their current values. The CPU runs the same code eagerly.
 """
 from __future__ import annotations
 
@@ -21,18 +27,22 @@ import copy
 import dataclasses
 import math
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
-                    Tuple)
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
 from ..models.alignn import Alignn, AlignnConfig, DeviceBatch, alignn_apply
+from ..ops.cuda.graphs import CountedGraph
 from ..utils.device import resolve_device
 
 MIN_LOGVAR_FLOOR = -2.9  # reference train.py:39
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# real steps a captured train step takes eagerly (on a side stream) before
+# its capture: the first launch of each kernel builds and loads it
+WARMUP_STEPS = 1
 
 
 # The JAX package's `_cast_for_compute` in two halves: the member is cast once
@@ -170,31 +180,37 @@ def hetero_nll(model: Alignn, hyper: TrainHyper, batch: DeviceBatch,
 
 @dataclasses.dataclass
 class AdamState:
-    """optax `ScaleByAdamState` per parameter, f32."""
+    """optax `ScaleByAdamState` per parameter, f32, with its int32 count a
+    0-d tensor on the parameters' device."""
 
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
-    count: int = 0
+    count: torch.Tensor
 
 
 def init_adam(params: Sequence[torch.Tensor]) -> AdamState:
     return AdamState([torch.zeros_like(p) for p in params],
-                     [torch.zeros_like(p) for p in params])
+                     [torch.zeros_like(p) for p in params],
+                     torch.zeros((), dtype=torch.int32,
+                                 device=params[0].device))
 
 
-def _f32_bias_correction(decay: float, count: int) -> float:
-    """1 − decayᶜᵒᵘⁿᵗ in f32, as optax forms it from an int32 count."""
-    return float(np.float32(1.0) - np.power(np.float32(decay), count))
+def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """1 − decayᶜᵒᵘⁿᵗ in f32 from the int32 count, as optax forms it."""
+    return 1.0 - torch.pow(decay, count)
 
 
 @torch.no_grad()
 def apply_update(params: Sequence[torch.Tensor],
                  grads: Sequence[torch.Tensor], state: AdamState,
-                 is_sigma: Sequence[bool], lr_mean: float, lr_sigma: float,
+                 is_sigma: Sequence[bool],
+                 lr_mean: Union[float, torch.Tensor],
+                 lr_sigma: Union[float, torch.Tensor],
                  hyper: TrainHyper) -> torch.Tensor:
     """The optimizer tail, in place on `params` and `state`: global-norm
     clip, optional coupled decay, Adam moments, then `p − lr·(u + wd·p)` per
-    leaf with `lr_sigma` for the sigma group. Returns the gradient norm."""
+    leaf with `lr_sigma` for the sigma group (each LR a float or a 0-d f32
+    tensor on the parameters' device). Returns the gradient norm."""
     grads = [g.float() for g in grads]
     gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     scale = torch.clamp(hyper.grad_clip / torch.clamp_min(gnorm, 1e-12),
@@ -208,11 +224,11 @@ def apply_update(params: Sequence[torch.Tensor],
     torch._foreach_add_(state.mu, grads, alpha=1.0 - ADAM_B1)
     torch._foreach_mul_(state.nu, ADAM_B2)
     torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - ADAM_B2)
-    state.count += 1
+    state.count.add_(1)
     mu_hat = torch._foreach_div(state.mu,
-                                _f32_bias_correction(ADAM_B1, state.count))
+                                _bias_correction(ADAM_B1, state.count))
     nu_hat = torch._foreach_div(state.nu,
-                                _f32_bias_correction(ADAM_B2, state.count))
+                                _bias_correction(ADAM_B2, state.count))
     denom = torch._foreach_sqrt(nu_hat)
     torch._foreach_add_(denom, ADAM_EPS)
     updates = torch._foreach_div(mu_hat, denom)
@@ -221,16 +237,26 @@ def apply_update(params: Sequence[torch.Tensor],
     for sigma, lr in ((False, lr_mean), (True, lr_sigma)):
         pick = [i for i, s in enumerate(is_sigma) if s == sigma]
         if pick:
-            torch._foreach_add_([params[i] for i in pick],
-                                [updates[i] for i in pick], alpha=-lr)
+            torch._foreach_sub_([params[i] for i in pick], torch._foreach_mul(
+                [updates[i] for i in pick], lr))
     return gnorm
 
 
+def _on_device(batch, device: torch.device) -> DeviceBatch:
+    """`batch` as a DeviceBatch on `device` (a GraphBatch is moved)."""
+    if isinstance(batch, DeviceBatch):
+        return batch
+    return DeviceBatch.from_batch(batch, device)
+
+
 class TrainStep:
-    """One optimizer step of a member, the JAX package's `make_train_step`:
-    `step(batch, generator, lr_mean, lr_sigma)` → StepMetrics (0-d device
-    tensors). The model's parameters and this object's Adam state update in
-    place; after a step each parameter's `.grad` holds its raw gradient."""
+    """One optimizer step of a member, run eagerly (the CPU's step; on the
+    card `GraphTrainStep` replays its capture): `step(batch, generator)` →
+    StepMetrics (0-d device tensors), `batch` a DeviceBatch or a host
+    GraphBatch. The model's parameters and this object's Adam state update
+    in place; after a step each parameter's `.grad` holds its raw gradient.
+    The two LR groups' rates are device tensors, written by `set_lr` (or
+    by passing `lr_mean` and `lr_sigma`)."""
 
     def __init__(self, model: Alignn, hyper: TrainHyper,
                  log_means: np.ndarray, log_stds: np.ndarray):
@@ -241,14 +267,23 @@ class TrainStep:
         smask = sigma_mask(model)
         self.is_sigma = [smask[n] for n in names]
         self.state = init_adam(self.params)
-        device = self.params[0].device
+        self.device = self.params[0].device
         self.mu = torch.as_tensor(np.asarray(log_means, np.float32),
-                                  device=device)
+                                  device=self.device)
         self.sd = torch.as_tensor(np.asarray(log_stds, np.float32),
-                                  device=device)
+                                  device=self.device)
+        self.lr_mean = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.lr_sigma = torch.zeros_like(self.lr_mean)
 
-    def __call__(self, batch: DeviceBatch, generator: Optional[torch.Generator],
-                 lr_mean: float, lr_sigma: float) -> StepMetrics:
+    def set_lr(self, lr_mean: float, lr_sigma: float) -> None:
+        """Write the two groups' LRs into their device tensors, outside any
+        captured program (a replay reads them where they are)."""
+        self.lr_mean.fill_(lr_mean)
+        self.lr_sigma.fill_(lr_sigma)
+
+    def _step(self, batch: DeviceBatch,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The step's work → its StepMetrics stacked, f32 [7]."""
         for p in self.params:
             p.grad = None
         y_z = target_z(batch, self.mu, self.sd)
@@ -256,68 +291,224 @@ class TrainStep:
             self.model, self.hyper, batch, y_z, generator, train=True)
         loss.backward()
         apply_update(self.params, [p.grad for p in self.params], self.state,
-                     self.is_sigma, lr_mean, lr_sigma, self.hyper)
+                     self.is_sigma, self.lr_mean, self.lr_sigma, self.hyper)
         with torch.no_grad():
             pred = torch.exp(mean * self.sd + self.mu)
             el_mask = batch.graph_mask[:, None] * batch.y_mask
             err = (pred - batch.y) * el_mask
-            return StepMetrics(
-                loss_sum=sample_loss.sum(), n_graphs=batch.graph_mask.sum(),
-                abs_err_sum=err.abs().sum(), sq_err_sum=(err ** 2).sum(),
-                n_elements=el_mask.sum(),
-                logvar_sum=(logvar * el_mask).sum(),
-                max_var=(torch.exp(logvar)
-                         * batch.graph_mask[:, None]).max())
+            return torch.stack([
+                sample_loss.sum(), batch.graph_mask.sum(), err.abs().sum(),
+                (err ** 2).sum(), el_mask.sum(), (logvar * el_mask).sum(),
+                (torch.exp(logvar) * batch.graph_mask[:, None]).max()])
 
-    def run(self, batches: Sequence[DeviceBatch],
-            generator: Optional[torch.Generator], lr_mean: float,
-            lr_sigma: float) -> StepMetrics:
+    def _one(self, batch, generator: Optional[torch.Generator]
+             ) -> torch.Tensor:
+        return self._step(_on_device(batch, self.device), generator)
+
+    def __call__(self, batch, generator: Optional[torch.Generator] = None,
+                 lr_mean: Optional[float] = None,
+                 lr_sigma: Optional[float] = None) -> StepMetrics:
+        if lr_mean is not None:
+            self.set_lr(lr_mean, lr_sigma)
+        return StepMetrics(*self._one(batch, generator).clone())
+
+    def run(self, batches: Sequence, generator: Optional[torch.Generator],
+            lr_mean: Optional[float] = None,
+            lr_sigma: Optional[float] = None) -> StepMetrics:
         """K sequential steps over `batches` (the JAX package's
-        `make_scan_train_step`) → StepMetrics of [K] tensors, read back
-        once."""
-        ms = [self(b, generator, lr_mean, lr_sigma) for b in batches]
-        return StepMetrics(*(torch.stack(x) for x in zip(*ms)))
+        `make_scan_train_step`) → StepMetrics of [K] tensors, filled on the
+        device and read back once by the caller."""
+        if lr_mean is not None:
+            self.set_lr(lr_mean, lr_sigma)
+        rows = torch.empty((len(batches), len(StepMetrics._fields)),
+                           dtype=torch.float32, device=self.device)
+        for i, b in enumerate(batches):
+            rows[i].copy_(self._one(b, generator))
+        return StepMetrics(*rows.unbind(1))
+
+    def close(self) -> None:
+        """Drop what the step holds beyond the model and its state."""
+
+
+class GraphTrainStep(TrainStep):
+    """The train step on the card as a captured CUDA graph, the JAX
+    package's jitted step with the parameters and Adam state donated.
+
+    Each batch is copied into static buffers (`DeviceBatch.copy_from`).
+    The first `WARMUP_STEPS` steps run eagerly on a side stream (PyTorch's
+    whole-network capture recipe; they are real steps of the epoch). The
+    next step captures loss → backward → optimizer tail → metrics once, with
+    `generator` registered so each replay draws the next dropout and jitter
+    numbers of its stream, then replays; every later step replays.
+    Parameters and moments update in place, gradients live in the graph's
+    pool. `run` replays K times into a [K] metrics buffer. A capture that
+    fails raises: nothing falls back to the eager step."""
+
+    def __init__(self, model: Alignn, hyper: TrainHyper,
+                 log_means: np.ndarray, log_stds: np.ndarray):
+        super().__init__(model, hyper, log_means, log_stds)
+        self.static: Optional[DeviceBatch] = None
+        self.graph: Optional[CountedGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.generator: Optional[torch.Generator] = None
+        self.eager_steps = 0
+        self._side = torch.cuda.Stream(self.device)
+
+    def _one(self, batch, generator: Optional[torch.Generator]
+             ) -> torch.Tensor:
+        if self.static is None:
+            self.static = DeviceBatch.allocate(batch, self.device)
+            self.generator = generator
+        elif generator is not self.generator:
+            raise ValueError("a captured train step draws from the one "
+                             "generator it started with")
+        self.static.copy_from(batch)
+        if self.graph is None and self.eager_steps < WARMUP_STEPS:
+            self.eager_steps += 1
+            return _on_side(self._side,
+                            lambda: self._step(self.static, generator))
+        if self.graph is None:
+            self.graph = CountedGraph("train")
+            self.out = self.graph.capture(
+                lambda: self._step(self.static, generator), generator)
+        self.graph.replay()
+        return self.out
+
+    def close(self) -> None:
+        """Free the graph, its pool (the gradients live there) and the
+        static buffers."""
+        captured = self.graph is not None
+        if captured:
+            self.graph.reset()
+        self.graph = self.out = self.static = None
+        for p in self.params:
+            p.grad = None
+        if captured:
+            _release_pools()
+
+
+def _release_pools() -> None:
+    """Return the memory of freed graphs' pools to the card: the caching
+    allocator keeps a freed private pool's blocks until `empty_cache`, so
+    without it each member's captures would pile up (a capture does not
+    empty the cache first, `ops/cuda/graphs.py`). Called only where a graph
+    was freed: the next allocations pay for cudaMalloc again."""
+    torch.cuda.empty_cache()
+
+
+def _on_side(side: torch.cuda.Stream, fn: Callable[[], object]):
+    """Run `fn` on the side stream, ordered after and before the current
+    stream's work; its tensor outputs may be used on the current stream."""
+    current = torch.cuda.current_stream(side.device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = fn()
+    current.wait_stream(side)
+    for t in (out if isinstance(out, tuple) else (out,)):
+        t.record_stream(current)
+    return out
 
 
 def make_train_step(model: Alignn, hyper: TrainHyper, log_means: np.ndarray,
                     log_stds: np.ndarray, device=None) -> TrainStep:
-    """The member's train step on `device` (the model moves there). `device`
+    """The member's train step on `device` (the model moves there): a
+    `GraphTrainStep` on the card, the eager `TrainStep` on the CPU. `device`
     None means CUDA, which must then be available."""
-    return TrainStep(model.to(resolve_device(device)), hyper, log_means,
-                     log_stds)
+    dev = resolve_device(device)
+    cls = GraphTrainStep if dev.type == "cuda" else TrainStep
+    return cls(model.to(dev), hyper, log_means, log_stds)
 
 
-def make_forward(floor: float = MIN_LOGVAR_FLOOR,
-                 compute_dtype: str = "float32"
-                 ) -> Callable[[Alignn, DeviceBatch],
-                               Tuple[torch.Tensor, torch.Tensor]]:
-    """Eval forward → (mean_z f32, logvar f32 floored at `floor`).
+def _shape_key(batch) -> tuple:
+    """The shapes (and span fields) that fix a batch's budget."""
+    return tuple((n, tuple(getattr(batch, n).shape))
+                 for n, _ in DeviceBatch._dtypes(batch))
+
+
+class Forward:
+    """Eval forward → (mean_z f32, logvar f32 floored at `floor`), called as
+    `forward(model, batch)` with a DeviceBatch or a host GraphBatch; the
+    JAX package's `make_forward` and `collect_predictions_scanned`.
 
     `compute_dtype='bfloat16'` expects a member already cast with
     `cast_model` (cast once per member, not per batch) and casts the batch's
-    features; the heads' outputs return as f32."""
-    dtype = _DTYPES[compute_dtype]
+    features; the heads' outputs return as f32. On the CPU it runs eagerly
+    (`eager`). On the card each (member, batch budget) is a captured graph:
+    its first batch runs eagerly on a side stream (a real result, and the
+    warm-up), its second captures the forward under `inference_mode`, and
+    from then on each batch is copied into the static buffers and the
+    capture replayed. The outputs returned are copies; `close` frees the
+    graphs."""
 
-    def forward(model: Alignn, batch: DeviceBatch):
+    def __init__(self, floor: float = MIN_LOGVAR_FLOOR,
+                 compute_dtype: str = "float32"):
+        self.floor = floor
+        self.dtype = _DTYPES[compute_dtype]
+        self._graphs: Dict[tuple, dict] = {}
+
+    def eager(self, model: Alignn, batch: DeviceBatch
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         with torch.inference_mode():
-            mean, logvar = alignn_apply(model, cast_batch(batch, dtype))
+            mean, logvar = alignn_apply(model, cast_batch(batch, self.dtype))
             return (mean.float(),
-                    torch.clamp_min(logvar.float(), floor))
+                    torch.clamp_min(logvar.float(), self.floor))
 
-    return forward
+    def __call__(self, model: Alignn, batch
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        device = next(model.parameters()).device
+        if device.type != "cuda":
+            return self.eager(model, _on_device(batch, device))
+        key = (id(model), _shape_key(batch))
+        entry = self._graphs.get(key)
+        if entry is None:
+            # the entry holds the model, so its id is not reused
+            entry = self._graphs[key] = dict(
+                model=model, static=DeviceBatch.allocate(batch, device),
+                graph=None, out=None)
+            entry["static"].copy_from(batch)
+            return _on_side(torch.cuda.Stream(device),
+                            lambda: self.eager(model, entry["static"]))
+        entry["static"].copy_from(batch)
+        if entry["graph"] is None:
+            entry["graph"] = CountedGraph("eval")
+            entry["out"] = entry["graph"].capture(
+                lambda: self.eager(model, entry["static"]))
+        entry["graph"].replay()
+        return tuple(t.clone() for t in entry["out"])
+
+    def close(self) -> None:
+        graphs = [e["graph"] for e in self._graphs.values() if e["graph"]]
+        for graph in graphs:
+            graph.reset()
+        self._graphs.clear()
+        if graphs:
+            _release_pools()
 
 
-def collect_predictions(forward, model: Alignn, batches: Sequence, device
+def make_forward(floor: float = MIN_LOGVAR_FLOOR,
+                 compute_dtype: str = "float32") -> Forward:
+    """The eval forward (`Forward`): captured on the card, eager on the
+    CPU."""
+    return Forward(floor, compute_dtype)
+
+
+def collect_predictions(forward, model: Alignn, batches: Sequence
                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                    np.ndarray]:
-    """Run `forward` over the packed batches → per-real-graph host arrays
-    (mean_z [N,T], sigma_z [N,T], y_linear [N,T], sample_index [N])."""
+    """Run `forward` over the packed host batches → per-real-graph host
+    arrays (mean_z [N,T], sigma_z [N,T], y_linear [N,T], sample_index
+    [N]). Every batch is queued before the outputs are read back, once."""
+    outs = [torch.stack(forward(model, b)) for b in batches]
+    host = torch.cat(outs, dim=1).cpu().numpy()      # [2, ΣG, T]
     means, sigmas, ys, idxs = [], [], [], []
+    start = 0
     for b in batches:
-        mean, logvar = forward(model, DeviceBatch.from_batch(b, device))
+        g = np.asarray(b.graph_mask).shape[0]
+        mean, logvar = host[:, start:start + g]
+        start += g
         mask = np.asarray(b.graph_mask) > 0
-        means.append(mean.cpu().numpy()[mask])
-        sigmas.append(np.sqrt(np.exp(logvar.cpu().numpy()))[mask])
+        means.append(mean[mask])
+        sigmas.append(np.sqrt(np.exp(logvar))[mask])
         # invalid targets (y_mask 0) surface as NaN, never as y's inert fill
         yv = np.where(np.asarray(b.y_mask) > 0, np.asarray(b.y), np.nan)
         ys.append(yv[mask])

@@ -25,7 +25,7 @@ import torch
 from ..data.batching import BatchBudget, epoch_batches
 from ..data.store import GraphStore
 from ..data.transforms import LogTransformer
-from ..models.alignn import Alignn, AlignnConfig, DeviceBatch, init_alignn
+from ..models.alignn import Alignn, AlignnConfig, init_alignn
 from .config import TrainConfig
 from .loop import (TrainHyper, collect_predictions, cosine_lr, make_forward,
                    make_train_step)
@@ -211,8 +211,7 @@ def train_member(
 
         next_batches = submit_pack()
         for epoch in range(1, cfg.epochs + 1):
-            lr_mean = mean_sched(epoch - 1)
-            lr_sigma = sigma_sched(epoch - 1)
+            step.set_lr(mean_sched(epoch - 1), sigma_sched(epoch - 1))
             weight_arr = (np.asarray(freq_weights, dtype=np.float32)
                           if freq_weights is not None else None)
             batches = _graft_weights(next_batches.result(), weight_arr)
@@ -223,13 +222,10 @@ def train_member(
             # remainder step by step. No padded steps either way.
             n_scan = (len(batches) // scan_k) * scan_k if scan_k > 1 else 0
             for i in range(0, n_scan, scan_k):
-                dbs = [DeviceBatch.from_batch(b, device)
-                       for b in batches[i:i + scan_k]]
-                sums += _metric_sums(step.run(dbs, generator, lr_mean,
-                                              lr_sigma))
+                sums += _metric_sums(step.run(batches[i:i + scan_k],
+                                              generator))
             for b in batches[n_scan:]:
-                sums += _metric_sums(step(DeviceBatch.from_batch(b, device),
-                                          generator, lr_mean, lr_sigma))
+                sums += _metric_sums(step(b, generator))
             n_steps += len(batches)
             train_loss = sums[0] / max(sums[1], 1.0)
             train_mae = sums[2] / max(sums[1], 1.0)
@@ -238,7 +234,7 @@ def train_member(
 
             if val_batches:
                 mean_z, sigma_z, y_val, _ = collect_predictions(
-                    forward, model, val_batches, device)
+                    forward, model, val_batches)
                 vm = eval_metrics(mean_z, sigma_z, y_val, transformer)
             else:
                 vm = {"nll": train_loss, "mae": train_mae,
@@ -275,6 +271,11 @@ def train_member(
                         break
             else:
                 stale = 0
+
+    # this member's captured programs and their pools go before the next
+    # member starts
+    step.close()
+    forward.close()
 
     best = Alignn(model_cfg)
     best.load_state_dict(best_state if best_state is not None
