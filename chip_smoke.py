@@ -15,7 +15,11 @@ Phases, each printing one line (a failure anywhere exits non-zero):
   3. kernel: each kernel against its plain PyTorch version on the card, on
      small seeded edge cases and at the flagship conv shapes, f32 and bf16:
      the eproj forward (kernel 5) and backward (kernel 6), the CSR
-     segment-sum (kernel 7, permuted and identity order), the kv+e
+     segment-sum (kernel 7, permuted and identity order; also a 1,000-row
+     segment, 100 segments, the dummy's alone, widths 6 to 1024, a
+     misaligned base; its output in the values' type bitwise its f32
+     output cast, deterministic; the bf16 kv gather's backward one launch
+     of it, no cast kernel; each conv's source-segment lengths), the kv+e
      attention forward (kernel 3) and backward (kernel 4), the
      external-logits softmax-aggregate forward (kernel 1) and backward
      (kernel 2), and the span forward (kernel 8) and backward (kernel 9),
@@ -76,10 +80,14 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      a profiled chunk; the forward the same over 16 served batches.
      Kernels 6 and 9 also by CUDA kernel (torch.profiler), beside their
      three products as `torch.matmul` calls (a diagnostic floor the port
-     never calls). In each profiled captured run the profiler's calls of
-     every kernel equal the launch counts.
+     never calls). Kernels 7 and 11 also beside an empty kernel launched
+     on their own grid and block, timed the same way (the launch floor),
+     and kernel 7's identity order beside `torch.segment_reduce`. In each
+     profiled captured run the profiler's calls of every kernel equal the
+     launch counts.
   8. probes: the two dev probes as timing phases. The row gather (kernel
-     11) bitwise on every case of the JAX probe, timed beside
+     11) bitwise on every case of the JAX probe and on a misaligned
+     table, timed beside
      `torch.index_select`, also at the span kernels' own gather; the
      ladder (kernel 10, kernel 5 cut short after each phase) at the
      line-graph conv's shapes, its `full` stage bitwise kernel 5, device ms
@@ -688,11 +696,22 @@ def segsum_case(rng, batch, which, *, width, dtype, device):
 
 
 def check_segsum_case(name, case, rtol, atol):
+    """Kernel 7 on one case: its f32 output bitwise the plain version on
+    the CPU (a sequential sum in row order, the kernel's order) and within
+    (rtol, atol) of the plain version on the card (whose `index_add_` adds
+    with float atomics in another order); its output in the values' type
+    (the kv-gather backward's) bitwise its own f32 output cast; both
+    deterministic on a rerun."""
     import torch
     from gnnep_tpu_torch.ops.cuda import segment_sum as ss
     args = (case["values"], case["order"], case["starts"])
     kern = ss.csr_segment_sum_cuda(*args)
+    low = ss.csr_segment_sum_cuda(*args, case["values"].dtype)
     torch.cuda.synchronize()
+    if not torch.equal(kern.cpu(), ss.csr_segment_sum_plain(
+            *(None if a is None else a.cpu() for a in args))):
+        raise AssertionError(f"{name}: segment-sum kernel is not bitwise the "
+                             "CPU's sequential sum")
     plain = ss.csr_segment_sum_plain(*args)
     err = (kern - plain).abs().max().item() if kern.numel() else 0.0
     if not torch.isfinite(kern).all() or not torch.allclose(
@@ -700,34 +719,115 @@ def check_segsum_case(name, case, rtol, atol):
         raise AssertionError(f"{name}: segment-sum kernel differs from the "
                              f"plain version by {err:.3e} (rtol {rtol}, "
                              f"atol {atol})")
-    if not torch.equal(ss.csr_segment_sum_cuda(*args), kern):
+    if low.dtype != case["values"].dtype or not torch.equal(
+            low, kern.to(low.dtype)):
+        raise AssertionError(f"{name}: the segment-sum's {low.dtype} output "
+                             "is not its f32 output cast")
+    if not (torch.equal(ss.csr_segment_sum_cuda(*args), kern) and torch.equal(
+            ss.csr_segment_sum_cuda(*args, low.dtype), low)):
         raise AssertionError(f"{name}: segment-sum kernel is not "
                              "deterministic")
     say("kernel", kernel="csr_segment_sum", case=name, rtol=rtol, atol=atol,
-        max_abs_err=f"{err:.3e}")
+        max_abs_err=f"{err:.3e}", bitwise_cpu_sequential_sum=True,
+        out_in_values_type_is_f32_cast=True, deterministic=True)
     return err
 
 
+def segment_stats(batch) -> None:
+    """Each conv's source segments in the packed batch (the kv gather's
+    backward walks them): rows, the real segments' length mean, p99 and
+    max and how many are empty, and the dummy's tail, which the kernel
+    does not walk."""
+    for which, starts, e_total in (
+            ("lg", batch.lg_src_starts, batch.lg_src.shape[0]),
+            ("atom", batch.edge_src_starts, batch.edge_src.shape[0])):
+        starts = np.asarray(starts, np.int64)
+        lengths = np.diff(starts)
+        say("segments", conv=which, segments=starts.shape[0], rows=e_total,
+            mean=f"{lengths.mean():.2f}",
+            p99=f"{np.percentile(lengths, 99):.0f}", max=int(lengths.max()),
+            empty=int((lengths == 0).sum()),
+            dummy_tail_rows=int(e_total - starts[-1]))
+
+
+def segsum_small_case(rng, kind, *, width, dtype, device):
+    """A seeded arena of source-sorted segments: `mixed` (300 segments of
+    about 10 rows, the dummy's tail 100), `hub1000` (the same with a
+    1,000-row segment), `n100` (100 segments, fewer than the SMs), `n1`
+    (the dummy's segment alone), `misaligned` (`mixed` with values one
+    element off a 16-byte boundary: one-column loads)."""
+    import torch
+    n = {"n100": 100, "n1": 1}.get(kind, 300)
+    idx = rng.integers(0, max(n - 1, 1), 3000) if n > 1 else np.zeros(3000)
+    if kind == "hub1000":
+        idx = np.concatenate([idx, np.full(1000, 17)])
+    idx[-100:] = n - 1
+    order = np.argsort(idx, kind="stable")
+    starts = np.searchsorted(idx[order], np.arange(n))
+    e_total = idx.shape[0]
+    flat = torch.from_numpy(rng.normal(size=e_total * width + 1)).to(
+        device, dtype)
+    values = (flat[1:] if kind == "misaligned" else flat[:-1]).view(
+        e_total, width)
+    return dict(values=values,
+                order=torch.from_numpy(order).to(device, torch.int32),
+                starts=torch.from_numpy(starts).to(device, torch.int32))
+
+
+def check_gather_backward(dev):
+    """The bf16 kv gather's backward on the card is kernel 7 alone: its
+    gradient comes out bf16 from one launch, the profiler sees no cast."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gnnep_tpu_torch.ops.cuda import segment_sum as ss
+    c = segsum_small_case(np.random.default_rng(SEED + 21), "mixed",
+                          width=512, dtype=torch.bfloat16, device=dev)
+    idx = torch.searchsorted(c["starts"], torch.arange(
+        c["values"].shape[0], device=dev), right=True) - 1
+    src = torch.empty_like(idx).scatter_(0, c["order"].long(), idx)
+    x = torch.zeros((c["starts"].shape[0], 512), dtype=torch.bfloat16,
+                    device=dev, requires_grad=True)
+    out = ss.csr_gather_ordered(x, src, c["order"], c["starts"])
+    torch.cuda.synchronize()
+    before = ss.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (dx,) = torch.autograd.grad(out, x, c["values"])
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if (dx.dtype != torch.bfloat16 or ss.launches != before + 1
+            or len(kernels) != 1 or "csr_segment_sum_kernel" not in kernels[0]):
+        raise AssertionError(f"the bf16 kv-gather backward gave {dx.dtype} "
+                             f"from kernels {kernels}, not kernel 7 alone")
+    want = ss.csr_segment_sum_cuda(c["values"], c["order"], c["starts"])
+    if not torch.equal(dx, want.to(torch.bfloat16)):
+        raise AssertionError("the kv-gather backward is not kernel 7's sum")
+    say("kernel", kernel="csr_segment_sum", case="kv_gather_backward_bf16",
+        grad_dtype="bfloat16", cuda_kernels=len(kernels), cast_kernel=False)
+
+
 def phase_kernel_segsum(dev, batch):
-    """Kernel 7 on small seeded cases (empty segments, odd widths) and at
-    the flagship kv-gather backward shapes."""
+    """Kernel 7 on small seeded cases (empty segments, odd and wide widths,
+    a 1,000-row segment, fewer segments than SMs, the dummy's alone, a
+    misaligned base) and at the flagship kv-gather backward shapes; then
+    the kv gather's bf16 backward as one launch in the cotangent's type."""
     import torch
     rng = np.random.default_rng(SEED + 20)
+    segment_stats(batch)
     flagship = {}
     for dtype, tol in ((torch.float32, (1e-5, 1e-5)),
                        (torch.bfloat16, (1e-4, 1e-4))):
         tag = "float32" if dtype == torch.float32 else "bfloat16"
-        for width in (6, 16, 512):
-            idx = rng.integers(0, 299, 3000)
-            idx[-100:] = 299
-            order = np.argsort(idx, kind="stable")
-            starts = np.searchsorted(idx[order], np.arange(300))
-            case = dict(
-                values=torch.from_numpy(rng.normal(size=(3000, width))).to(
-                    dev, dtype),
-                order=torch.from_numpy(order).to(dev, torch.int32),
-                starts=torch.from_numpy(starts).to(dev, torch.int32))
-            check_segsum_case(f"small_w{width}_{tag}", case, *tol)
+        for kind, width in (("mixed", 6), ("mixed", 16), ("mixed", 512),
+                            ("mixed", 1024), ("hub1000", 512),
+                            ("n100", 512), ("n1", 512), ("misaligned", 512)):
+            case = segsum_small_case(rng, kind, width=width, dtype=dtype,
+                                     device=dev)
+            # the card's plain version adds a 1,000-row segment's f32 sums
+            # (up to about 100) in another order: atol 1e-3 there
+            check_segsum_case(f"{kind}_w{width}_{tag}", case, tol[0],
+                              1e-3 if kind == "hub1000" else tol[1])
         for which in ("lg", "atom"):
             case = segsum_case(rng, batch, which, width=512, dtype=dtype,
                                device=dev)
@@ -739,6 +839,7 @@ def phase_kernel_segsum(dev, batch):
         case = qgather_case(rng, batch, width=256, dtype=dtype, device=dev)
         err = check_segsum_case(f"lg_identity_order_{tag}", case, *tol)
         flagship[("lg_identity", tag)] = (case, err)
+    check_gather_backward(dev)
     return flagship
 
 
@@ -2229,17 +2330,17 @@ def eproj_bwd_bound_ms(case):
 
 
 def segsum_bound_ms(case):
-    """Least time for kernel 7's work: every row the result needs (those
-    before the dummy row's last segment, whose sum is unspecified) and its
-    order entry (none for the identity order) read once, the starts read
-    once, the f32 output written once; one f32 add per element read."""
+    """Least time for kernel 7's work as the kv-gather backward calls it:
+    every row the result needs (those before the dummy row's last segment,
+    whose sum is unspecified) and its order entry (none for the identity
+    order) read once, the starts read once, the output written once in the
+    values' type; one f32 add per element read."""
     v = case["values"]
     width = v.shape[1]
     n = case["starts"].shape[0]
     rows = int(case["starts"][-1].item())
     orders = rows if case["order"] is not None else 0
-    nbytes = (v.element_size() * rows * width + 4 * (orders + n)
-              + 4 * n * width)
+    nbytes = (v.element_size() * (rows + n) * width + 4 * (orders + n))
     ops = rows * width
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
@@ -2443,6 +2544,14 @@ def phase_probes(dev, batch):
             if not gp.check_bitwise(gp.probe_case(rows, gp.WIDTH, dtype, dev)):
                 raise AssertionError(f"row_gather S={rows} {dtype}: not "
                                      "bitwise tab[idx]")
+        # a contiguous table one element off a 16-byte boundary: the plan
+        # takes the element's own word
+        c = gp.probe_case(641, gp.WIDTH, dtype, dev)
+        c["tab"] = c["tab"].view(-1)[gp.WIDTH - 1:-1].view(640, gp.WIDTH)
+        c["idx"] = c["idx"][:640] % 640
+        if c["tab"].data_ptr() % 16 == 0 or not gp.check_bitwise(c):
+            raise AssertionError(f"row_gather misaligned {dtype}: not "
+                                 "bitwise tab[idx]")
     ladder_flag = {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = "float32" if dtype == torch.float32 else "bfloat16"
@@ -2462,10 +2571,12 @@ def phase_probes(dev, batch):
         err = (outs["full"][0][:-1] - plain[0][:-1]).abs().max().item()
         ladder_flag[("lg", tag)] = (c, err)
     counts = read_counts()
-    _only(counts, {"row_gather": len(gp.DTYPES) * len(gp.PROBE_ROWS),
+    _only(counts, {"row_gather": len(gp.DTYPES) * (len(gp.PROBE_ROWS) + 1),
                    "attn_eproj_ladder": 2 * len(kl.STAGES),
                    "attn_eproj_fwd": 2}, "probe checks")
     say("probe", gather_cases_bitwise=counts["row_gather"],
+        gather_misaligned_bitwise=",".join(str(d).split(".")[-1]
+                                           for d in gp.DTYPES),
         ladder_full_bitwise_kernel5="float32,bfloat16",
         ladder_launches=counts["attn_eproj_ladder"])
 
@@ -2498,20 +2609,25 @@ def phase_probes(dev, batch):
         "row_gather", gather_flag,
         lambda c: gp.row_gather_cuda(c["tab"], c["idx"]),
         lambda c: gp.row_gather_plain(c["tab"], c["idx"]), gather_bound_ms,
-        library=lambda c: torch.index_select(c["tab"], 0, c["idx"]))
+        library=lambda c: torch.index_select(c["tab"], 0, c["idx"]),
+        floor=lambda c: gp.empty_launch_cuda(c["tab"], c["idx"]))
     return {"attn_eproj_ladder": (ladder, counts["attn_eproj_ladder"],
                                   {"stages_ms": stages}),
             "row_gather": (gather, counts["row_gather"], {})}
 
 
 def kernel_times(name, flagship, run_kernel, run_plain, bound_fn,
-                 library=None, split=False):
+                 library=None, split=False, floor=None, library2=None):
     """Device ms per launch, wall ms per call with host work, plain ms and
     bound of one kernel at each flagship case; `library(case)`, where given,
-    is one PyTorch call computing the same function, timed beside it. With
-    `split` (kernels 6 and 9), also each CUDA kernel's device ms (from
-    torch.profiler) and the three products' time as `torch.matmul` calls,
-    a diagnostic floor that the port never calls."""
+    is one PyTorch call computing the same function, timed beside it, and
+    `library2 = (name, fn)` a second such call where `fn(case)` does not
+    return None. `floor(case)` launches an empty kernel on the kernel's own
+    grid and block, timed the same way: the launch latency under a chain
+    (kernels 7 and 11). With `split` (kernels 6 and 9), also each CUDA
+    kernel's device ms (from torch.profiler) and the three products' time
+    as `torch.matmul` calls, a diagnostic floor that the port never
+    calls."""
     from gnnep_tpu_torch.dev.bwd_bench import gemm_floor_ms, kernel_split_ms
     cases = []
     for (which, dtype), (case, err) in flagship.items():
@@ -2524,20 +2640,30 @@ def kernel_times(name, flagship, run_kernel, run_plain, bound_fn,
                       "call_ms": call_ms, "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": bound_by,
                       "library_ms": lib_ms, "max_abs_err": err})
+        extra = {}
+        if floor:
+            cases[-1]["empty_launch_ms"] = device_ms(lambda: floor(case))
+            extra["empty_launch_ms"] = f"{cases[-1]['empty_launch_ms']:.4f}"
+        if library2 and library2[1](case) is not None:
+            ms2 = device_ms(lambda: library2[1](case))
+            cases[-1][f"{library2[0]}_ms"] = ms2
+            extra[f"{library2[0]}_ms"] = f"{ms2:.4f}"
         say("times", kernel=name, conv=which, dtype=dtype,
             ms=f"{kern_ms:.4f}", call_ms_with_host=f"{call_ms:.4f}",
             bound_ms=f"{bound:.4f}", bound_by=bound_by,
+            share_of_bound=f"{bound / kern_ms:.2f}",
             plain_ms_no_yardstick=f"{plain_ms:.4f}",
             library_ms=("none (no single PyTorch call computes this "
-                        "function)" if lib_ms is None else f"{lib_ms:.4f}"))
+                        "function)" if lib_ms is None else f"{lib_ms:.4f}"),
+            **extra)
         if split:
             parts = kernel_split_ms(lambda: run_kernel(case))
-            floor = gemm_floor_ms(case, device_ms)
-            cases[-1].update(split_ms=parts, gemm_floor_ms=floor)
+            floor_ms = gemm_floor_ms(case, device_ms)
+            cases[-1].update(split_ms=parts, gemm_floor_ms=floor_ms)
             say("times", kernel=name, conv=which, dtype=dtype,
                 **{f"{k.replace('attn_eproj_bwd_', '')}_ms": f"{v:.4f}"
                    for k, v in parts.items() if k.endswith("kernel")},
-                gemm_floor_ms_diagnostic=f"{floor:.4f}")
+                gemm_floor_ms_diagnostic=f"{floor_ms:.4f}")
     return cases
 
 
@@ -2567,7 +2693,7 @@ def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
         eproj_bwd_bound_ms, split=True)
 
     def seg_args(c):
-        return c["values"], c["order"], c["starts"]
+        return c["values"], c["order"], c["starts"], c["values"].dtype
 
     def index_add(c):
         # the whole kv-gather backward as one library call: scatter-add of
@@ -2576,11 +2702,23 @@ def phase_train_times(bwd_flag, seg_flag, setup, batches, dev):
         return torch.zeros((c["starts"].shape[0], v.shape[1]), dtype=v.dtype,
                            device=v.device).index_add_(0, c["src"], v)
 
+    def segment_reduce(c):
+        # the identity order's sum in one library call: the CSR rows
+        # summed by offsets, the dummy row's segment cut to empty
+        if c["order"] is not None:
+            return None
+        starts = c["starts"].long()
+        return torch.segment_reduce(c["values"], "sum", offsets=torch.cat(
+            [starts, starts[-1:]]), axis=0)
+
+    # kernel 7 as the kv-gather backward calls it: its output in the
+    # cotangent's type
     seg = kernel_times(
         "csr_segment_sum", seg_flag,
         lambda c: ss.csr_segment_sum_cuda(*seg_args(c)),
         lambda c: ss.csr_segment_sum_plain(*seg_args(c)), segsum_bound_ms,
-        library=index_add)
+        library=index_add, floor=lambda c: ss.empty_launch_cuda(*seg_args(c)),
+        library2=("segment_reduce", segment_reduce))
 
     store = setup.store
     full = full_batches(batches)

@@ -1,13 +1,15 @@
 """Sum over contiguous CSR segments: the CUDA kernel `csrc/csr_segment_sum.cu`,
-its ctypes wrapper, its plain PyTorch version, its launch count, and the two
-gathers whose backward it is.
+its launch plan, its ctypes wrapper, its plain PyTorch version, its launch
+count, and the two gathers whose backward it is.
 
 Counterpart of `windowed_segment_sum`, `csr_gather` and `csr_gather_ordered`
 in `gnnep_tpu/ops/pallas/csr_attention.py` (TPU kernel `_sum_kernel`):
 
     out[n] = Σ_{j ∈ [seg_starts[n], seg_starts[n+1])} values[order[j]]
 
-(`order` None: the identity), accumulated and returned in f32. The last
+(`order` None: the identity), accumulated in f32 and returned in f32 or in
+the values' type (rounded once: the gathers' backward returns the
+cotangent's type, as the JAX package's `dx.astype(g.dtype)`). The last
 segment is the dummy row's, which owns the arena's tail padding; its sum is
 unspecified by the JAX package's contract (whose `windowed_segment_sum` ends
 it at `e_total_end`) and is written here as zeros, without walking its rows
@@ -17,6 +19,7 @@ takes the plain version; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -29,17 +32,50 @@ _KERNEL = "csr_segment_sum"
 # before it drives a path and reads it just after
 launches = 0
 
+# csr_segment_sum.cu's block: kThreads / 32 warps
+WARPS_PER_BLOCK = 4
+
+
+@dataclass(frozen=True)
+class SegsumPlan:
+    """How the kernel covers [N, W]: warp w of the grid owns segment
+    w // slices and its column slice w % slices; lane l of it owns word
+    32 (w % slices) + l of each row, `vec` consecutive columns loaded at
+    once (words past W / vec idle)."""
+    vec: int
+    slices: int
+    blocks: int
+
+
+def segsum_plan(n: int, width: int, in_dtype: torch.dtype,
+                out_dtype: torch.dtype, values_ptr: int,
+                out_ptr: int) -> SegsumPlan:
+    """The launch plan from the shape, the types and the two base
+    addresses alone (never the data, so a captured graph can replay it):
+    the widest load of at most 16 bytes (4 f32 or 8 bf16 columns) that
+    divides the width and both bases' alignment (each output word is
+    stored in chunks of at most 16 bytes), narrower words otherwise."""
+    item, out_item = in_dtype.itemsize, out_dtype.itemsize
+    vec = 16 // item
+    while vec > 1 and (width % vec or values_ptr % (vec * item)
+                       or out_ptr % min(16, vec * out_item)):
+        vec //= 2
+    slices = -(-(width // vec) // 32)
+    return SegsumPlan(vec, slices, -(-(n * slices) // WARPS_PER_BLOCK))
+
 
 def csr_segment_sum_plain(values: torch.Tensor, order: Optional[torch.Tensor],
-                          seg_starts: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version → f32 [N, W]: the rows of the permuted arena
-    `values[order]` (`order` None: the identity) summed per segment, in row
-    order; the last segment zeros."""
+                          seg_starts: torch.Tensor,
+                          out_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """Plain PyTorch version → [N, W] in `out_dtype`: the rows of the
+    permuted arena `values[order]` (`order` None: the identity) summed per
+    segment in f32, in row order, then cast; the last segment zeros."""
     n = seg_starts.shape[0]
     out = torch.zeros((n,) + tuple(values.shape[1:]), dtype=torch.float32,
                       device=values.device)
     if n == 0:
-        return out
+        return out.to(out_dtype)
     starts = seg_starts.long()
     rows = torch.arange(values.shape[0], device=values.device)
     seg = torch.searchsorted(starts, rows, right=True) - 1
@@ -50,7 +86,7 @@ def csr_segment_sum_plain(values: torch.Tensor, order: Optional[torch.Tensor],
         (-1,) + (1,) * (values.dim() - 1))
     picked = rows if order is None else order.long()
     vals = values.index_select(0, picked).float() * keep
-    return out.index_add_(0, seg.clamp_min(0), vals)
+    return out.index_add_(0, seg.clamp_min(0), vals).to(out_dtype)
 
 
 def _lib() -> ctypes.CDLL:
@@ -58,16 +94,15 @@ def _lib() -> ctypes.CDLL:
     fn = lib.csr_segment_sum
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 4 + [i] * 3 + [p]
+        fn.argtypes = [p] * 4 + [i] * 5 + [p]
         fn.restype = i
+        lib.csr_segment_sum_empty.argtypes = [i] * 3 + [p]
+        lib.csr_segment_sum_empty.restype = i
     return lib
 
 
-def csr_segment_sum_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
-                         seg_starts: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on the current stream → f32 [N, W] as
-    `csr_segment_sum_plain`. Raises on anything the kernel does not take."""
-    global launches
+def _checked(values, order, seg_starts, out_dtype):
+    """Raise on anything the kernel does not take → (device, n, width)."""
     tensors = {"values": values, "seg_starts": seg_starts}
     if order is not None:
         tensors["order"] = order
@@ -86,29 +121,71 @@ def csr_segment_sum_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
             f"shapes the kernel does not take: values {tuple(values.shape)}, "
             f"order {None if order is None else tuple(order.shape)}, "
             f"seg_starts {tuple(seg_starts.shape)}")
+    if out_dtype not in (torch.float32, values.dtype):
+        raise TypeError(f"the output is float32 or the values' type, not "
+                        f"{out_dtype}")
     width = values.shape[1]
-    out = torch.empty((n, width), dtype=torch.float32, device=device)
+    if n * -(-width // 32) >= 2 ** 31:
+        raise ValueError(f"{n} segments of width {width} are more warps "
+                         "than the kernel's grid indexes")
+    return device, n, width
+
+
+def csr_segment_sum_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
+                         seg_starts: torch.Tensor,
+                         out_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """Launch the kernel on the current stream → [N, W] in `out_dtype`
+    (float32 or the values' type) as `csr_segment_sum_plain`. Raises on
+    anything the kernel does not take."""
+    global launches
+    device, n, width = _checked(values, order, seg_starts, out_dtype)
+    out = torch.empty((n, width), dtype=out_dtype, device=device)
     if n == 0 or width == 0:
         return out
-    lib = _lib()
+    plan = segsum_plan(n, width, values.dtype, out_dtype, values.data_ptr(),
+                       out.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.csr_segment_sum(
+        rc = _lib().csr_segment_sum(
             values.data_ptr(), None if order is None else order.data_ptr(),
             seg_starts.data_ptr(), out.data_ptr(), n, width,
-            int(values.dtype == torch.bfloat16), stream)
+            int(values.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), plan.vec, stream)
     if rc != 0:
         raise RuntimeError(f"{_KERNEL} launch failed with CUDA error {rc}")
     launches += 1
     return out
 
 
+def empty_launch_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
+                      seg_starts: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32) -> None:
+    """Launch an empty kernel on the grid and block that
+    `csr_segment_sum_cuda` would launch for these inputs: the floor of
+    launch latency under a chain of its launches (timing only; not
+    counted)."""
+    device, n, width = _checked(values, order, seg_starts, out_dtype)
+    if n == 0 or width == 0:
+        return
+    out = torch.empty((n, width), dtype=out_dtype, device=device)
+    plan = segsum_plan(n, width, values.dtype, out_dtype, values.data_ptr(),
+                       out.data_ptr())
+    with torch.cuda.device(device):
+        rc = _lib().csr_segment_sum_empty(
+            n, width, plan.vec, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{_KERNEL} empty launch failed with CUDA error "
+                           f"{rc}")
+
+
 def csr_segment_sum(values: torch.Tensor, order: Optional[torch.Tensor],
-                    seg_starts: torch.Tensor) -> torch.Tensor:
+                    seg_starts: torch.Tensor,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if values.device.type == "cpu":
-        return csr_segment_sum_plain(values, order, seg_starts)
-    return csr_segment_sum_cuda(values, order, seg_starts)
+        return csr_segment_sum_plain(values, order, seg_starts, out_dtype)
+    return csr_segment_sum_cuda(values, order, seg_starts, out_dtype)
 
 
 class CsrGatherOrdered(torch.autograd.Function):
@@ -125,8 +202,10 @@ class CsrGatherOrdered(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         order, seg_starts = ctx.saved_tensors
-        dx = csr_segment_sum(g.contiguous(), order, seg_starts)
-        return dx.to(g.dtype), None, None, None
+        # in the cotangent's type, rounded once from the f32 sum (the
+        # kernel writes it so: no separate cast launch)
+        dx = csr_segment_sum(g.contiguous(), order, seg_starts, g.dtype)
+        return dx, None, None, None
 
 
 def csr_gather_ordered(x: torch.Tensor, idx: torch.Tensor, order: torch.Tensor,
