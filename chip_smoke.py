@@ -9,7 +9,8 @@ Phases, each printing one line (a failure anywhere exits non-zero):
   2. build: nvcc builds the ten CUDA sources of `csrc/` (one nvcc per
      source, all started together) and prints each kernel's registers and
      spills (kernels 5 and 8's bf16 builds must spill nothing at the
-     flagship's 64-channel tile); `cuobjdump` counts the tensor-core instructions (HGMMA, HMMA)
+     flagship's 64-channel tile, kernels 3 and 4 nothing at the flagship's
+     plans); `cuobjdump` counts the tensor-core instructions (HGMMA, HMMA)
      of kernels 5, 6, 8 and 9, which must have some in every product
      kernel, both types.
   3. kernel: each kernel against its plain PyTorch version on the card, on
@@ -20,7 +21,10 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      misaligned base; its output in the values' type bitwise its f32
      output cast, deterministic; the bf16 kv gather's backward one launch
      of it, no cast kernel; each conv's source-segment lengths), the kv+e
-     attention forward (kernel 3) and backward (kernel 4), the
+     attention forward (kernel 3) and backward (kernel 4; also with 1, 2
+     and all heads to a warp and 1 or 4 warps to a row, on a row of 1,000
+     live edges, and with q, k_e and v_e 2 and 4 bytes off an aligned
+     base, bitwise the aligned run; kernel 4 one CUDA kernel per call), the
      external-logits softmax-aggregate forward (kernel 1) and backward
      (kernel 2), and the span forward (kernel 8) and backward (kernel 9),
      these two also against kernel 5 on the gathered kv and against kernel
@@ -80,8 +84,9 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      a profiled chunk; the forward the same over 16 served batches.
      Kernels 6 and 9 also by CUDA kernel (torch.profiler), beside their
      three products as `torch.matmul` calls (a diagnostic floor the port
-     never calls). Kernels 7 and 11 also beside an empty kernel launched
-     on their own grid and block, timed the same way (the launch floor),
+     never calls). Kernels 3, 4, 7 and 11 also beside an empty kernel
+     launched on their own grid and block, timed the same way (the launch
+     floor),
      and kernel 7's identity order beside `torch.segment_reduce`. In each
      profiled captured run the profiler's calls of every kernel equal the
      launch counts.
@@ -301,6 +306,7 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 print(f"  {name}{entry}: {line.strip()}", flush=True)
     forward_spills(build.build_logs)
+    attn_spills(build.build_logs)
     sass_tensor_cores()
 
 
@@ -342,6 +348,49 @@ def forward_spills(logs: dict) -> None:
                 raise AssertionError(f"{name} {func}: spills {m.group(1)} "
                                      "bytes at the flagship width")
             say("build", kernel=name, f32_flagship_spill_bytes=m.group(1))
+
+
+def attn_spills(logs: dict) -> None:
+    """Kernels 3 and 4 at the flagship's plans (line-graph and atom conv,
+    f32 and bf16: hidden 256, 4 heads) must spill nothing: nvcc's report
+    of each of those instantiations (a library built by an earlier run in
+    the same checkout has none to read)."""
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    for name in ("attn_fwd", "attn_bwd"):
+        if name not in logs:
+            say("build", kernel=name, spill_report="none: built by an "
+                "earlier run in this checkout")
+            continue
+        flagship = {}
+        for item, mangled in ((4, "f"), (2, "13__nv_bfloat16")):
+            for n, e_total in ((7552, 74880), (768, 7552)):
+                plan = at.attention_plan(n, e_total, 256, 4, item, 0, 0, 0,
+                                         backward=name == "attn_bwd")
+                key = (f"{mangled}Li{plan.span}ELi{plan.word}ELi"
+                       f"{plan.slabs}E")
+                if name == "attn_fwd":
+                    key += f"Lb{int(plan.stream)}E"
+                flagship[key] = plan
+        func, seen = "", {}
+        for line in logs.get(name, "").splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                func = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if not (m and f"{name}_kernelI" in func):
+                continue
+            args = func.split(f"{name}_kernelI", 1)[1]
+            for key in flagship:
+                if args.startswith(key):
+                    seen[key] = int(m.group(1)) + int(m.group(2))
+        if set(seen) != set(flagship) or any(seen.values()):
+            raise AssertionError(f"{name}: the flagship instantiations' "
+                                 f"spill bytes {seen}, want 0 for each of "
+                                 f"{sorted(flagship)}")
+        say("build", kernel=name, flagship_instantiations=len(seen),
+            spill_bytes=0)
 
 
 # --------------------------------------------------------------- phase 3
@@ -888,6 +937,20 @@ def attn_fwd_args(c):
     return (c["q"], c["k"], c["v"], c["scale_t"], c["mask2"])
 
 
+def attn_plan(c, backward=False):
+    """Kernel 3's plan (kernel 4's with `backward`) for case `c`: the
+    wrapper's own (None), or with `c["hpw"]` heads to a warp and
+    `c["split"]` warps to a row."""
+    if c.get("hpw") is None and c.get("split") is None:
+        return None
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    q, k = c["q"], c["k"]
+    return at.attention_plan(q.shape[0], k.shape[0], q.shape[1], c["heads"],
+                             q.element_size(), q.data_ptr(), k.data_ptr(),
+                             c["v"].data_ptr(), heads_per_warp=c.get("hpw"),
+                             split=c.get("split"), backward=backward)
+
+
 def agg_fwd_args(c):
     return (c["logits_t"], c["scale_t"], c["v"], c["row_ptr"])
 
@@ -900,7 +963,8 @@ def run_fwd(kernel, c):
     from gnnep_tpu_torch.ops.cuda import attention as at
     if kernel == "attn_fwd":
         args = attn_fwd_args(c)
-        kern = at.attention_cuda(*args, c["row_ptr"], heads=c["heads"])
+        kern = at.attention_cuda(*args, c["row_ptr"], heads=c["heads"],
+                                 plan=attn_plan(c))
         torch.cuda.synchronize()
         return kern, at.attention_plain(*args, c["dst"], heads=c["heads"])
     args = agg_fwd_args(c)
@@ -920,7 +984,7 @@ def rung_bwd_inputs(kernel, c, g_seed=0):
     g = torch.randn((n, hidden), generator=gen, device=c["v"].device)
     if kernel == "attn_bwd":
         _, mx, den = at.attention_cuda(*attn_fwd_args(c), c["row_ptr"],
-                                       heads=c["heads"])
+                                       heads=c["heads"], plan=attn_plan(c))
         return attn_fwd_args(c) + (c["row_ptr"], g, mx, den)
     _, mx, den = ag.aggregate_cuda(*agg_fwd_args(c), heads=c["heads"])
     return agg_fwd_args(c) + (g, mx, den)
@@ -943,9 +1007,11 @@ def run_bwd(kernel, c, args):
     import torch
     from gnnep_tpu_torch.ops.cuda import aggregate as ag
     from gnnep_tpu_torch.ops.cuda import attention as at
-    cuda = (at.attention_bwd_cuda if kernel == "attn_bwd"
-            else ag.aggregate_bwd_cuda)
-    kern = cuda(*args, heads=c["heads"])
+    if kernel == "attn_bwd":
+        kern = at.attention_bwd_cuda(*args, heads=c["heads"],
+                                     plan=attn_plan(c, backward=True))
+    else:
+        kern = ag.aggregate_bwd_cuda(*args, heads=c["heads"])
     torch.cuda.synchronize()
     return kern, run_bwd_plain(kernel, c, args)
 
@@ -1021,12 +1087,122 @@ def check_rung_bwd(kernel, name, c, tol):
     return max(errs.values())
 
 
+def attn_at_offset(c, offset):
+    """Case `c` with q, k_e and v_e copied into contiguous views `offset`
+    bytes past a 256-byte aligned base (the plan's narrower words)."""
+    import torch
+    out = dict(c)
+    for key in ("q", "k", "v"):
+        t = c[key]
+        skip = offset // t.element_size()
+        flat = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+        out[key] = flat[skip:].view(t.shape).copy_(t)
+    return out
+
+
+def attn_outputs(c):
+    """Kernel 3's (out, max, denom) and kernel 4's (dq, dk, dv) of case
+    `c`, the cotangent seeded."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    fwd = at.attention_cuda(*attn_fwd_args(c), c["row_ptr"], heads=c["heads"],
+                            plan=attn_plan(c))
+    bwd = at.attention_bwd_cuda(*rung_bwd_inputs("attn_bwd", c),
+                                heads=c["heads"],
+                                plan=attn_plan(c, backward=True))
+    torch.cuda.synchronize()
+    return fwd + bwd
+
+
+def check_attn_layouts(rng, dev, dtype, tol, tag):
+    """Kernels 3 and 4 on small seeded cases with 1, 2 and all heads to a
+    warp (where a warp holds them), each with one warp to a row and with
+    four: head widths 8, 64 and 96, a row of
+    1,000 live edges (the scratch path), interior padding, an all-masked
+    row, the dummy row's tail, a dropout scale; and with q, k_e and v_e at
+    2- and 4-byte offsets (the plan's narrow words), each output bitwise
+    the aligned run's. Returns the cases checked."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    degs = rng.integers(0, 12, 48)
+    degs[7] = 1000
+    cases = [("ch8", dict(n=40, heads=2, hidden=16, interior_pad=0.2,
+                          degs=rng.integers(0, 7, 40))),
+             ("ch64", dict(n=24, heads=4, hidden=256, interior_pad=0.1,
+                           degs=rng.integers(10, 60, 24))),
+             ("ch96", dict(n=16, heads=2, hidden=192, interior_pad=0.1,
+                           degs=rng.integers(1, 20, 16))),
+             ("row1000", dict(n=48, heads=4, hidden=256, interior_pad=0.0,
+                              degs=degs))]
+    checked = 0
+    for name, kw in cases:
+        case = attn_inputs(eproj_case(rng, fe=16, dtype=dtype, device=dev,
+                                      dead_rows=(3,), scale=True, **kw))
+        if name == "row1000":
+            live = int((case["mask2"][case["dst"] == 7] > 0).sum().item())
+            if live != 1000:
+                raise AssertionError(f"row1000 has {live} live edges")
+        for hpw, split in ((h, w) for h in sorted({1, 2, case["heads"]})
+                           for w in (1, 4)):
+            c = dict(case, hpw=hpw, split=split)
+            try:
+                attn_plan(c)
+            except ValueError:  # a layout these heads cannot take
+                continue
+            label = f"{name}_hpw{hpw}_split{split}_{tag}"
+            check_rung_fwd("attn_fwd", label, c, tol)
+            check_rung_bwd("attn_bwd", label, c, tol)
+            want = attn_outputs(c)
+            for offset in (2, 4):
+                if offset % c["q"].element_size():
+                    continue  # an f32 tensor 2 bytes off takes no word
+                moved = attn_at_offset(c, offset)
+                plan = attn_plan(moved)
+                got = attn_outputs(moved)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(
+                        f"attn {label}: q, k_e, v_e {offset} bytes off "
+                        f"(words of {plan.word}) differ from the aligned run")
+                say("kernel", kernel="attn_fwd+attn_bwd", case=label,
+                    base_offset_bytes=offset, word_bytes=plan.word,
+                    span_bytes=plan.span, bitwise_equal_aligned=True)
+            checked += 1
+    return checked
+
+
+def check_attn_bwd_one_kernel(c):
+    """Kernel 4 is one CUDA kernel per call: the profiler sees the one
+    launch of `attn_bwd_kernel`, which also zeroes the dummy row's dk and
+    dv rows, and nothing else."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    args = rung_bwd_inputs("attn_bwd", c)
+    at.attention_bwd_cuda(*args, heads=c["heads"])
+    torch.cuda.synchronize()
+    before = at.bwd_launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        at.attention_bwd_cuda(*args, heads=c["heads"])
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if (at.bwd_launches != before + 1 or len(kernels) != 1
+            or not re.search(r"\battn_bwd_kernel\b", kernels[0])):
+        raise AssertionError(f"a kernel 4 call ran the CUDA kernels "
+                             f"{kernels}, not attn_bwd_kernel alone")
+    say("kernel", kernel="attn_bwd", case="attn_bwd",
+        cuda_kernels=len(kernels), name=repr(kernels[0][:60]))
+
+
 def phase_kernel_rungs(dev, batch):
     """Kernels 3, 4, 1 and 2 on small seeded edge cases (head widths 8, 64
     and 96; interior padding, an all-masked row, empty rows, the dummy
     row's tail, a dropout scale) and at the flagship conv shapes of a
-    packed training batch, f32 and bf16 → {kernel: {(conv, dtype): (case,
-    err)}}."""
+    packed training batch, f32 and bf16; kernels 3 and 4 also on every
+    layout of their plan, at misaligned bases (bitwise) and on a row of
+    1,000 live edges (`check_attn_layouts`), and kernel 4 as one CUDA
+    kernel per call → {kernel: {(conv, dtype): (case, err)}}."""
     import torch
     rng = np.random.default_rng(SEED + 30)
     flagship = {k: {} for k in ("attn_fwd", "attn_bwd",
@@ -1065,6 +1241,19 @@ def phase_kernel_rungs(dev, batch):
                 for k, e in err.items():
                     c = a if k.startswith("attn") else g
                     flagship[k][(which, tag)] = (c, e)
+                # the flagship convs on the other layouts: one head a
+                # warp, all heads a warp, four warps a row on the line graph
+                # and one on the atom conv
+                for hpw, split in ((1, None), (4, None),
+                                   (None, 4 if which == "lg" else 1)):
+                    c = dict(a, hpw=hpw, split=split)
+                    label = f"{name}_hpw{hpw}_split{split}_{tag}"
+                    check_rung_fwd("attn_fwd", label, c, tol)
+                    check_rung_bwd("attn_bwd", label, c, tol)
+        say("kernel", kernel="attn_fwd+attn_bwd", dtype=tag,
+            layout_and_base_cases=check_attn_layouts(rng, dev, dtype, tol,
+                                                     tag))
+    check_attn_bwd_one_kernel(flagship["attn_bwd"][("lg", "bfloat16")][0])
     return flagship
 
 
@@ -2236,7 +2425,7 @@ def _fwd_bound_ms(nbytes: float, proj_ops: float, item: int):
                                        else "operations")
 
 
-def phase_times(flagship, batches, ens, dev):
+def phase_times(flagship, batches, ens, dev, kve_ens):
     """Kernel 5 at the flagship shapes; then member 0's eval forward, f32
     and bf16, eager and captured side by side over TIMING_BATCHES served
     batches from the host, read back once (the serving path's loop): wall
@@ -2244,7 +2433,8 @@ def phase_times(flagship, batches, ens, dev):
     busy share; the captured pass's kernel calls held to the launch
     counts). The captured forward's first two calls (eager warm-up, then
     capture and replay) are timed apart: what a request pays once per
-    member."""
+    member. Then the same captured forward of the kv+e rung's member 0
+    (`kve_ens`, kernel 3 in every conv)."""
     import torch
     from gnnep_tpu_torch.models.alignn import DeviceBatch
     from gnnep_tpu_torch.ops.cuda import attention_eproj as ep
@@ -2299,6 +2489,27 @@ def phase_times(flagship, batches, ens, dev):
                                 f"{c['device_ms_per_batch']:.3f}",
             busy_share=f"{e['busy_share']:.3f}|{c['busy_share']:.3f}",
             captured_first_two_calls_ms=f"{first_two:.1f}")
+    model = load_member(kve_ens / "model_0.npz", dev)
+    for dtype in ("float32", "bfloat16"):
+        run = cast_model(model, dtype)
+        fwd = make_forward(compute_dtype=dtype)
+        for b in seq[:2]:
+            fwd(run, b)[0].cpu()
+
+        def one_pass():
+            return torch.stack([torch.stack(fwd(run, b)) for b in seq]).cpu()
+
+        ms = chunk_ms(one_pass)[0] / len(seq)
+        busy, dev_ms = profile_run(one_pass, "forward_kv+e_captured", dtype,
+                                   len(seq), counted=True)
+        fwd.close()
+        forwards[f"kv+e_{dtype}"] = {"captured": dict(
+            ms_per_batch=ms, graphs_per_s=real / ms * 1e3,
+            device_ms_per_batch=dev_ms, busy_share=busy)}
+        say("times", forward=dtype, rung="kv+e", kind="captured",
+            batches=len(seq), ms_per_batch=f"{ms:.3f}",
+            graphs_per_s=f"{real / ms * 1e3:.0f}",
+            device_ms_per_batch=f"{dev_ms:.3f}", busy_share=f"{busy:.3f}")
     return cases, forwards
 
 
@@ -2424,7 +2635,9 @@ def phase_rung_times(rung_flag):
                                     heads=c["heads"]),
         lambda c: at.attention_plain(*attn_fwd_args(c), c["dst"],
                                      heads=c["heads"]),
-        attn_bound_ms)
+        attn_bound_ms,
+        floor=lambda c: at.attention_empty_cuda(c["q"], c["k"], c["v"],
+                                                heads=c["heads"]))
     out["softmax_aggregate_fwd"] = kernel_times(
         "softmax_aggregate_fwd", rung_flag["softmax_aggregate_fwd"],
         lambda c: ag.aggregate_cuda(*agg_fwd_args(c), heads=c["heads"]),
@@ -2437,11 +2650,15 @@ def phase_rung_times(rung_flag):
                 for c, _ in rung_flag[kernel].values()}
         cuda = (at.attention_bwd_cuda if kernel == "attn_bwd"
                 else ag.aggregate_bwd_cuda)
+        floor = (None if kernel != "attn_bwd" else
+                 lambda c: at.attention_empty_cuda(
+                     c["q"], c["k"], c["v"], heads=c["heads"],
+                     backward=True))
         out[kernel] = kernel_times(
             kernel, rung_flag[kernel],
             lambda c, cuda=cuda: cuda(*args[id(c)], heads=c["heads"]),
             lambda c, kernel=kernel: run_bwd_plain(kernel, c, args[id(c)]),
-            bound)
+            bound, floor=floor)
     return out
 
 
@@ -2805,7 +3022,7 @@ PROFILED = {r"attn_eproj_fwd_kernel": ("attn_eproj_fwd", "attn_span_fwd"),
                                             "attn_span_bwd"),
             r"csr_segment_sum_kernel": ("csr_segment_sum",),
             r"attn_fwd_kernel": ("attn_fwd",),
-            r"attn_bwd(_wide)?_kernel": ("attn_bwd",),
+            r"attn_bwd_kernel": ("attn_bwd",),
             r"softmax_aggregate_fwd_kernel": ("softmax_aggregate_fwd",),
             r"softmax_aggregate_bwd_kernel": ("softmax_aggregate_bwd",)}
 
@@ -2895,11 +3112,12 @@ def main() -> int:
         span_flag = phase_kernel_span(dev, train_batches[0])
         phase_kernel_widths(dev)
         launches = phase_serve(root, data, ens, cfg, batches, dev)
+        rung_ens = {rung: write_rung_ensemble(root, ens, cfg, rung)
+                    for rung in RUNGS}
         rung_serve = {
-            rung: phase_serve(root, data,
-                              write_rung_ensemble(root, ens, cfg, rung), cfg,
-                              batches, dev, members=RUNG_MEMBERS,
-                              kernel=spec["fwd"], tag=f"_{rung}")
+            rung: phase_serve(root, data, rung_ens[rung], cfg, batches, dev,
+                              members=RUNG_MEMBERS, kernel=spec["fwd"],
+                              tag=f"_{rung}")
             for rung, spec in RUNGS.items()}
         runs = phase_train(root, data, cfg.layers)
         rung_train = {rung: phase_train_rung(root, data, cfg.layers, rung)
@@ -2920,7 +3138,8 @@ def main() -> int:
                         heads=heads, layers=2)
         phase_check_dropout(setup, train_batches, dev)
         phase_sync(setup, train_batches, dev)
-        cases, forward_times = phase_times(flagship, batches, ens, dev)
+        cases, forward_times = phase_times(flagship, batches, ens, dev,
+                                           rung_ens["kv+e"])
         rung_cases = phase_rung_times(rung_flag)
         span_cases = phase_span_times(span_flag)
         bwd_cases, seg_cases, step_times = phase_train_times(

@@ -8,7 +8,8 @@ a checkout), as `bwd_bench.py` does, so that one call can time two trees.
 For the line-graph and the atom conv of the trainer's first packed batch
 (`chip_smoke.py`'s fixture and cases), f32 and bf16, it prints each
 kernel's device ms per launch: kernels 5 and 8, and kernels 1-4 on the
-same case; at the line-graph conv in f32 the error of kernels 5 and 8
+same case (kernels 3 and 4 with their bound, and, in a tree that has it,
+their plan and the empty-launch floor on the plan's grid); at the line-graph conv in f32 the error of kernels 5 and 8
 against a float64 reference beside the plain f32 version's own; the ladder's device ms per stage (kernel 10); nvcc's
 register report and the tensor-core and FMA instruction counts of each
 built forward kernel.
@@ -60,6 +61,25 @@ def f64_error(out, ref) -> float:
     n-1's output is unspecified), over the reference's largest magnitude."""
     a, b = out[:-1].double(), ref[:-1]
     return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
+
+
+def attn_extras(cs, at, c, kernel) -> dict:
+    """Kernel 3's or 4's bound at case `c`, and where the package has them
+    (kernels with a plan) its plan and an empty kernel on the plan's grid and
+    block, timed the same way (the launch floor)."""
+    bound = (cs.attn_bound_ms if kernel == "attn_fwd"
+             else cs.attn_bwd_bound_ms)(c)[0]
+    out = {"bound_ms": bound}
+    if hasattr(at, "attention_empty_cuda"):
+        import dataclasses
+        q, k, v = c["q"], c["k"], c["v"]
+        out["plan"] = dataclasses.asdict(at.attention_plan(
+            q.shape[0], k.shape[0], q.shape[1], c["heads"],
+            q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            backward=kernel == "attn_bwd"))
+        out["empty_launch_ms"] = cs.device_ms(lambda: at.attention_empty_cuda(
+            q, k, v, heads=c["heads"], backward=kernel == "attn_bwd"))
+    return out
 
 
 def width_times(cs, batch, dev) -> list:
@@ -191,6 +211,8 @@ def main(argv=None) -> int:
             for kernel, run in runs.items():
                 r = {"kernel": kernel, "conv": which, "dtype": tag,
                      "ms": cs.device_ms(run)}
+                if kernel in ("attn_fwd", "attn_bwd"):
+                    r.update(attn_extras(cs, at, ca, kernel))
                 print(f"[bench] {json.dumps(r)}", flush=True)
                 rec["cases"].append(r)
             if which == "lg" and tag == "float32":

@@ -17,6 +17,8 @@ kernels or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,6 +36,171 @@ _KERNEL_BWD = "attn_bwd"
 # run sets them to 0 just before it drives a path and reads them just after
 launches = 0
 bwd_launches = 0
+
+
+# attn_kv.cuh: warps per block and heads a warp holds, at most; slabs
+# (spans a lane holds per pass) at most, and G = EDGES_IN_FLIGHT / slabs
+# edges to a group (kEdges)
+MAX_WARPS, MAX_HEADS, MAX_SLABS, EDGES_IN_FLIGHT = 8, 8, 2, 4
+# kernel 4's blocks hold at most 4 warps: at the flagship line graph 4 beat
+# 8 by 1.5 % (f32) and 2.6 % (bf16) on an H100, while kernel 3 loses 10-15 %
+# with 4 (dev/attn_variants.py; PERF.md §6)
+MAX_WARPS_BWD = 4
+# a conv whose warps (one a target and group of heads) number fewer than
+# these splits each row over 2 or 4 warps, to reach them: its time is then
+# each warp's chain of loads over the longest rows, not the card's
+# bandwidth (the flagship's atom conv, 768 targets). The counts are the
+# fastest of 1, 2 and 4 warps a row there, forward and backward, f32 and
+# bf16, on an H100 (dev/attn_variants.py; PERF.md §6). They were measured
+# at that one shape only: other target counts near them are untimed
+SPLIT_TO = {"forward": 3072, "backward": 1536}
+# the SMs, which the plan fills with at least two blocks each where the
+# targets allow, and the L2 bytes (a forward whose k and v are larger reads
+# them with evict-first loads): the card's own (`card_shape`), or an H100's
+# where the plan is asked without a card
+SMS, L2_BYTES = 132, 50 * 2 ** 20
+
+
+@functools.lru_cache(maxsize=None)
+def card_shape(index: int) -> Tuple[int, int]:
+    """(SMs, L2 bytes) of CUDA device `index`."""
+    p = torch.cuda.get_device_properties(index)
+    return p.multi_processor_count, getattr(p, "L2_cache_size", L2_BYTES)
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """How kernels 3 and 4 cover the rows (attn_kv.cuh). A lane's slot is a
+    span of `span` bytes of a head, moved in words of `word` bytes. A warp
+    holds `heads_per_warp` heads of one target (all of them: a warp per
+    target), `slabs` spans a lane, each head's spans in an aligned group of
+    `group` lanes; a head of more than 32 spans takes a warp alone (group
+    32) and walks it in `passes` of 32 x `slabs` spans. `split` warps share
+    a target's row, each taking every split-th group of its edges. `warps`
+    per block, `blocks` over the targets and groups of heads, and
+    `tail_blocks` more, first in the backward's grid, that zero the dummy
+    row's dk and dv rows. `stream`: the forward reads k and v with
+    evict-first loads."""
+    span: int
+    word: int
+    heads_per_warp: int
+    split: int
+    slabs: int
+    group: int
+    passes: int
+    warps: int
+    blocks: int
+    tail_blocks: int
+    stream: bool
+
+
+def attention_plan(n: int, e_total: int, hidden: int, heads: int,
+                   itemsize: int, q_ptr: int, k_ptr: int, v_ptr: int,
+                   heads_per_warp: Optional[int] = None,
+                   split: Optional[int] = None,
+                   backward: bool = False,
+                   device: Optional[torch.device] = None) -> AttentionPlan:
+    """The launch plan of kernel 3 (kernel 4's with `backward`) on CUDA
+    `device` (None: an H100's SM count and L2); see `_plan`. Only the bases'
+    alignment to 16 bytes enters it, so it is worked out once per shape,
+    alignment and card."""
+    sms, l2 = (card_shape(device.index if device.index is not None
+                          else torch.cuda.current_device())
+               if device is not None and device.type == "cuda"
+               else (SMS, L2_BYTES))
+    return _plan(n, e_total, hidden, heads, itemsize, q_ptr % 16,
+                 k_ptr % 16, v_ptr % 16, heads_per_warp, split, backward,
+                 sms, l2)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(n: int, e_total: int, hidden: int, heads: int, itemsize: int,
+          q_off: int, k_off: int, v_off: int, heads_per_warp: Optional[int],
+          split: Optional[int], backward: bool, sms: int,
+          l2_bytes: int) -> AttentionPlan:
+    """The launch plan from the shape, the element size and the three base
+    addresses' offsets from 16-byte alignment alone (never the data, so a
+    captured graph replays it).
+
+    The span, and with it the layout and the order of every sum, follows
+    from the shape alone: the widest of 16, 8, 4 or 2 bytes that holds
+    whole elements and divides the head's bytes. A warp holds the heads of
+    one slab of 32 lanes (at most 8; at the flagship all 4 in bf16, 2 of
+    the 4 in f32); a head of more than 32 spans takes a warp alone, as does
+    the one head of a single-head conv, with the widest span that still
+    spreads it over 16 lanes. The word is the widest that divides the span
+    and all three bases, so a misaligned tensor changes only the load
+    instructions. A conv of fewer warps than `SPLIT_TO` (kernel 3's, or
+    kernel 4's with `backward`) splits each row over 2 or 4 warps (one
+    pass only); kernel 3 streams k and v larger than L2. A block holds 8
+    warps (kernel 4: 4), fewer where the targets would not give every SM
+    two blocks. `heads_per_warp`
+    and `split` force a layout (the checks and the benches run others).
+    Raises where no word of whole elements fits, or where a warp cannot
+    hold the heads asked for."""
+    ch = hidden // heads
+    head_bytes = ch * itemsize
+
+    def widest(ok):
+        return next((b for b in (16, 8, 4, 2) if b >= itemsize and ok(b)),
+                    None)
+
+    def grouped(span, hpw):
+        """(slabs, group) of `hpw` heads a warp at this span, or None."""
+        wph = head_bytes // span
+        group = 1 << max(0, (wph - 1).bit_length())
+        if group > 32:
+            return (2, 32) if hpw == 1 else None
+        slabs = -(-hpw // (32 // group))
+        if (hpw > min(heads, MAX_HEADS) or slabs > MAX_SLABS
+                or hpw * (EDGES_IN_FLIGHT // slabs) > 32):
+            return None
+        return slabs, group
+
+    span = widest(lambda b: head_bytes % b == 0)
+    hpw = heads_per_warp
+    if hpw is None:
+        group = 1 << max(0, (head_bytes // span - 1).bit_length())
+        hpw = min(heads, MAX_HEADS, 32 // group) if group <= 32 else 1
+    if hpw == 1:
+        span = widest(lambda b: head_bytes % b == 0 and (
+            head_bytes // b >= 16 or b == itemsize))
+    layout = grouped(span, hpw)
+    if layout is None:
+        raise ValueError(f"a warp cannot hold {hpw} of {heads} heads of "
+                         f"{head_bytes} bytes")
+    slabs, group = layout
+    passes = -(-(head_bytes // span) // (32 * slabs)) if group == 32 and \
+        head_bytes // span > 32 else 1
+    word = widest(lambda b: b <= span and not (
+        q_off % b or k_off % b or v_off % b))
+    if word is None:
+        raise ValueError(
+            f"heads of {head_bytes} bytes at bases {q_off}, {k_off} and "
+            f"{v_off} bytes past 16-byte alignment take no word of whole "
+            f"{itemsize}-byte elements (2 bytes at least)")
+    per = -(-heads // hpw)
+    if split is None:
+        want = SPLIT_TO["backward" if backward else "forward"]
+        split = next((w for w in (1, 2) if n * per * w >= want), 4)
+        split = split if passes == 1 else 1
+    if split not in (1, 2, 4) or (split > 1 and passes > 1):
+        raise ValueError(f"{split} warps cannot share a row of {passes} "
+                         "passes")
+    warps = MAX_WARPS_BWD if backward else MAX_WARPS
+    while warps > max(2, split) and -(-n // (warps // split)) * per < 2 * sms:
+        warps //= 2
+    # blocks zeroing the dummy row's dk and dv rows, one a quarter MiB of
+    # the [E, H] arena (the tail's size is the data's)
+    tail = max(1, min(sms, -(-e_total * hidden * itemsize // 2 ** 18)))
+    stream = not backward and 2 * e_total * hidden * itemsize > l2_bytes
+    return AttentionPlan(span, word, hpw, split, slabs, group, passes, warps,
+                         -(-n // (warps // split)) * per, tail, stream)
+
+
+def _plan_args(plan: AttentionPlan) -> tuple:
+    return (plan.span, plan.word, plan.slabs, plan.heads_per_warp,
+            plan.split, plan.warps)
 
 
 def inv_sqrt(ch: int) -> float:
@@ -113,11 +280,17 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == _KERNEL and lib.attn_fwd.argtypes is None:
-        lib.attn_fwd.argtypes = ([p] * 10 + [i] * 4 + [ctypes.c_float, i, p])
+        lib.attn_fwd.argtypes = ([p] * 10 + [i] * 4 + [ctypes.c_float]
+                                 + [i] * 8 + [p])
         lib.attn_fwd.restype = i
+        lib.attn_fwd_empty.argtypes = [i] * 10 + [p]
+        lib.attn_fwd_empty.restype = i
     if name == _KERNEL_BWD and lib.attn_bwd.argtypes is None:
-        lib.attn_bwd.argtypes = ([p] * 14 + [i] * 4 + [ctypes.c_float, i, p])
+        lib.attn_bwd.argtypes = ([p] * 14 + [i] * 4 + [ctypes.c_float]
+                                 + [i] * 8 + [p])
         lib.attn_bwd.restype = i
+        lib.attn_bwd_empty.argtypes = [i] * 11 + [p]
+        lib.attn_bwd_empty.restype = i
     return lib
 
 
@@ -158,10 +331,13 @@ def _check_inputs(q, k_e, v_e, scale_t, mask2, row_ptr, *, heads, extra=()):
 
 def attention_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
                    scale_t: torch.Tensor, mask2: torch.Tensor,
-                   row_ptr: torch.Tensor, *, heads: int
+                   row_ptr: torch.Tensor, *, heads: int,
+                   plan: Optional[AttentionPlan] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch kernel 3 on the current stream → (out, max, denom) as
-    `attention_plain`. Raises on anything the kernel does not take."""
+    `attention_plain`, on `attention_plan`'s plan (`plan`: another, for
+    the dev benches' variants). Raises on anything the kernel does not
+    take."""
     global launches
     n, hidden, e_total = _check_inputs(q, k_e, v_e, scale_t, mask2, row_ptr,
                                        heads=heads)
@@ -171,7 +347,11 @@ def attention_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
     den = torch.empty((n, heads), dtype=torch.float32, device=device)
     if n == 0:
         return out, mx, den
-    # per-edge logits, written and read back by the warp that owns the edge
+    plan = plan or attention_plan(n, e_total, hidden, heads, q.element_size(),
+                                  q.data_ptr(), k_e.data_ptr(),
+                                  v_e.data_ptr(), device=device)
+    # the logits of rows of more than 32 edges, written and read back by the
+    # warp that owns the row (shorter rows keep theirs on chip)
     logit_s = torch.empty((heads, e_total), dtype=torch.float32,
                           device=device)
     lib = _lib(_KERNEL)
@@ -182,7 +362,8 @@ def attention_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
             mask2.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
             mx.data_ptr(), den.data_ptr(), logit_s.data_ptr(), n, e_total,
             hidden, heads, inv_sqrt(hidden // heads),
-            int(q.dtype == torch.bfloat16), stream)
+            int(q.dtype == torch.bfloat16), *_plan_args(plan),
+            int(plan.stream), stream)
     if rc != 0:
         raise RuntimeError(f"{_KERNEL} launch failed with CUDA error {rc}")
     launches += 1
@@ -192,11 +373,13 @@ def attention_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
 def attention_bwd_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
                        scale_t: torch.Tensor, mask2: torch.Tensor,
                        row_ptr: torch.Tensor, g: torch.Tensor,
-                       mx: torch.Tensor, den: torch.Tensor, *, heads: int
+                       mx: torch.Tensor, den: torch.Tensor, *, heads: int,
+                       plan: Optional[AttentionPlan] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch kernel 4 on the current stream → (dq, dk, dv) as
-    `attention_bwd_plain`. `g` is the f32 cotangent of out. Raises on
-    anything the kernels do not take."""
+    `attention_bwd_plain`, on `attention_plan`'s plan (`plan`: another,
+    for the dev benches' variants). `g` is the f32 cotangent of out.
+    Raises on anything the kernel does not take."""
     global bwd_launches
     n = q.shape[0]
     extra = (("g", g, tuple(q.shape)), ("max", mx, (n, heads)),
@@ -209,7 +392,12 @@ def attention_bwd_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
     dv = torch.empty((e_total, hidden), dtype=q.dtype, device=device)
     if n == 0:
         return dq, dk.zero_(), dv.zero_()
-    # per-edge s and u, written and read back by the warp that owns the edge
+    plan = plan or attention_plan(n, e_total, hidden, heads, q.element_size(),
+                                  q.data_ptr(), k_e.data_ptr(),
+                                  v_e.data_ptr(), backward=True,
+                                  device=device)
+    # s and u of rows of more than 32 edges, written and read back by the
+    # warp that owns the row (shorter rows keep theirs on chip)
     s_s = torch.empty((heads, e_total), dtype=torch.float32, device=device)
     u_s = torch.empty_like(s_s)
     lib = _lib(_KERNEL_BWD)
@@ -220,12 +408,36 @@ def attention_bwd_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
             mask2.data_ptr(), row_ptr.data_ptr(), g.data_ptr(), mx.data_ptr(),
             den.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             s_s.data_ptr(), u_s.data_ptr(), n, e_total, hidden, heads,
-            inv_sqrt(hidden // heads), int(q.dtype == torch.bfloat16), stream)
+            inv_sqrt(hidden // heads), int(q.dtype == torch.bfloat16),
+            *_plan_args(plan), plan.tail_blocks, stream)
     if rc != 0:
         raise RuntimeError(f"{_KERNEL_BWD} launch failed with CUDA error "
                            f"{rc}")
     bwd_launches += 1
     return dq, dk, dv
+
+
+def attention_empty_cuda(q: torch.Tensor, k_e: torch.Tensor,
+                         v_e: torch.Tensor, *, heads: int,
+                         backward: bool = False,
+                         plan: Optional[AttentionPlan] = None) -> None:
+    """Launch an empty kernel on the grid and block that kernel 3's plan
+    (kernel 4's with `backward`) gives these inputs: the launch latency
+    that a chain of calls cannot go below. Counts no launch."""
+    n, hidden = q.shape
+    plan = plan or attention_plan(n, k_e.shape[0], hidden, heads,
+                                  q.element_size(), q.data_ptr(),
+                                  k_e.data_ptr(), v_e.data_ptr(),
+                                  backward=backward, device=q.device)
+    lib = _lib(_KERNEL_BWD if backward else _KERNEL)
+    args = (n, hidden, heads, int(q.dtype == torch.bfloat16),
+            *_plan_args(plan))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = (lib.attn_bwd_empty(*args, plan.tail_blocks, stream) if backward
+              else lib.attn_fwd_empty(*args, stream))
+    if rc != 0:
+        raise RuntimeError(f"empty launch failed with CUDA error {rc}")
 
 
 class CsrAttention(torch.autograd.Function):

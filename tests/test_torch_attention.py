@@ -186,29 +186,93 @@ def _card_inputs(c, dtype, device):
             _t(c, "row_ptr", torch.int32, device))
 
 
+def _row1000_case(rng, heads, hidden):
+    """`_case`'s hazards (interior padding, an all-masked row 3, an empty
+    row 5, a dropout scale) around a row of 1,000 live edges (row 2), the
+    kernels' path for rows of more than 32 edges."""
+    n = 16
+    degs = rng.integers(1, 7, n)
+    degs[2], degs[5], degs[-1] = 1000, 0, 0
+    dst = np.repeat(np.arange(n, dtype=np.int32), degs)
+    e_real = dst.shape[0]
+    dst = np.concatenate([dst, np.full(16, n - 1, np.int32)])
+    e_total = dst.shape[0]
+    mask = ((np.arange(e_total) < e_real)
+            & ((rng.random(e_total) > 0.15) | (dst == 2))).astype(np.float32)
+    mask[dst == 3] = 0.0
+    return dict(q=rng.normal(size=(n, hidden)).astype(np.float32),
+                k=rng.normal(size=(e_total, hidden)).astype(np.float32),
+                v=rng.normal(size=(e_total, hidden)).astype(np.float32),
+                row_ptr=np.searchsorted(dst, np.arange(n + 1)).astype(
+                    np.int32), dst=dst, mask=mask, heads=heads,
+                scale=((rng.random((heads, e_total)) > 0.25) / 0.75).astype(
+                    np.float32))
+
+
+def _at_offset(t, offset):
+    """`t` copied into a contiguous view `offset` bytes past an aligned
+    base."""
+    skip = offset // t.element_size()
+    flat = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    return flat[skip:].view(t.shape).copy_(t)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", ["serving", "row1000"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("heads,hidden", [(4, 256), (2, 16), (2, 192)])
-def test_kernels_match_plain_on_card(cuda, dtype, tol, heads, hidden):
-    """Head widths 64, 8 and 96; forward on the real rows, backward as
-    `_compare`, each within `tol` of the plain tensor's largest value."""
-    c = _case(np.random.default_rng(11), heads=heads, hidden=hidden)
+def test_kernels_match_plain_on_card(cuda, dtype, tol, heads, hidden, rows):
+    """Head widths 64, 8 and 96, on the serving hazards or around a row of
+    1,000 live edges; with the wrapper's plan and with 1, 2 and all heads
+    to a warp (where a warp holds them), one warp to a row and four:
+    forward on the real rows,
+    backward as `_compare`, each within `tol` of the plain tensor's
+    largest value. Then q, k_e and v_e at 2- and 4-byte offsets (the
+    plan's narrow words): every output bitwise the aligned run's."""
+    rng = np.random.default_rng(11)
+    c = (_case(rng, heads=heads, hidden=hidden) if rows == "serving"
+         else _row1000_case(rng, heads, hidden))
     args = _card_inputs(c, dtype, cuda)
     dst = _t(c, "dst", torch.int64, cuda)
-    before = (at.launches, at.bwd_launches)
-    got = at.attention_cuda(*args, heads=heads)
-    want = at.attention_plain(*args[:5], dst, heads=heads)
-    for a, b in zip(got, want):
-        sc = max(b[:-1].abs().max().item(), 1e-30)
-        torch.testing.assert_close(a[:-1] / sc, b[:-1] / sc, rtol=tol,
-                                   atol=tol)
     g = torch.from_numpy(_cotangent(c)).to(cuda)
-    bwd = at.attention_bwd_cuda(*args, g, got[1], got[2], heads=heads)
-    torch.cuda.synchronize()
-    assert (at.launches, at.bwd_launches) == (before[0] + 1, before[1] + 1)
-    ref = at.attention_bwd_plain(*args, dst, g, got[1], got[2], heads=heads)
-    for name, a, b in _compare(bwd, [r.float().cpu().numpy() for r in ref], c):
-        sc = max(np.abs(b).max(), 1e-30)
-        np.testing.assert_allclose(a / sc, b / sc, rtol=tol, atol=tol,
-                                   err_msg=name)
+    want = at.attention_plain(*args[:5], dst, heads=heads)
+
+    def run(q, k, v, layout):
+        plans = [None if layout is None else at.attention_plan(
+            q.shape[0], k.shape[0], hidden, heads, q.element_size(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            heads_per_warp=layout[0], split=layout[1], backward=backward)
+            for backward in (False, True)]
+        fwd = at.attention_cuda(q, k, v, *args[3:], heads=heads,
+                                plan=plans[0])
+        bwd = at.attention_bwd_cuda(q, k, v, *args[3:], g, fwd[1], fwd[2],
+                                    heads=heads, plan=plans[1])
+        torch.cuda.synchronize()
+        return fwd, bwd
+
+    for layout in (None, (1, 1), (2, 1), (heads, 1), (1, 4), (heads, 4)):
+        try:
+            before = (at.launches, at.bwd_launches)
+            got, bwd = run(*args[:3], layout)
+        except ValueError:  # a layout these heads cannot take
+            continue
+        assert (at.launches, at.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+        for a, b in zip(got, want):
+            sc = max(b[:-1].abs().max().item(), 1e-30)
+            torch.testing.assert_close(a[:-1] / sc, b[:-1] / sc, rtol=tol,
+                                       atol=tol)
+        ref = at.attention_bwd_plain(*args, dst, g, got[1], got[2],
+                                     heads=heads)
+        for name, a, b in _compare(bwd, [r.float().cpu().numpy()
+                                         for r in ref], c):
+            sc = max(np.abs(b).max(), 1e-30)
+            np.testing.assert_allclose(a / sc, b / sc, rtol=tol, atol=tol,
+                                       err_msg=name)
+        for offset in (2, 4):
+            if offset % args[0].element_size():
+                continue  # an f32 tensor 2 bytes off takes no word
+            moved = run(*(_at_offset(x, offset) for x in args[:3]), layout)
+            for a, b in zip(moved[0] + moved[1], got + bwd):
+                assert torch.equal(a, b), f"{offset} bytes off, {layout}"
