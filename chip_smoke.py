@@ -9,7 +9,7 @@ Phases, each printing one line (a failure anywhere exits non-zero):
   2. build: nvcc builds the ten CUDA sources of `csrc/` (one nvcc per
      source, all started together) and prints each kernel's registers and
      spills (kernels 5 and 8's bf16 builds must spill nothing at the
-     flagship's 64-channel tile, kernels 3 and 4 nothing at the flagship's
+     flagship's 64-channel tile, kernels 1-4 nothing at the flagship's
      plans); `cuobjdump` counts the tensor-core instructions (HGMMA, HMMA)
      of kernels 5, 6, 8 and 9, which must have some in every product
      kernel, both types.
@@ -26,7 +26,9 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      live edges, and with q, k_e and v_e 2 and 4 bytes off an aligned
      base, bitwise the aligned run; kernel 4 one CUDA kernel per call), the
      external-logits softmax-aggregate forward (kernel 1) and backward
-     (kernel 2), and the span forward (kernel 8) and backward (kernel 9),
+     (kernel 2; the same layouts, 1, 2 and 4 warps to a row, the 1,000-edge
+     row and v and g 2 and 4 bytes off, bitwise; kernel 2 one CUDA kernel
+     per call), and the span forward (kernel 8) and backward (kernel 9),
      these two also against kernel 5 on the gathered kv and against kernel
      6's dkv folded by kernel 7. Dead rows of every backward must be exact
      zeros. Kernels 6 and 9 also on the shapes their tiling must take (a
@@ -84,7 +86,7 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      a profiled chunk; the forward the same over 16 served batches.
      Kernels 6 and 9 also by CUDA kernel (torch.profiler), beside their
      three products as `torch.matmul` calls (a diagnostic floor the port
-     never calls). Kernels 3, 4, 7 and 11 also beside an empty kernel
+     never calls). Kernels 1-4, 7 and 11 also beside an empty kernel
      launched on their own grid and block, timed the same way (the launch
      floor),
      and kernel 7's identity order beside `torch.segment_reduce`. In each
@@ -306,7 +308,7 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 print(f"  {name}{entry}: {line.strip()}", flush=True)
     forward_spills(build.build_logs)
-    attn_spills(build.build_logs)
+    layout_spills(build.build_logs)
     sass_tensor_cores()
 
 
@@ -350,13 +352,15 @@ def forward_spills(logs: dict) -> None:
             say("build", kernel=name, f32_flagship_spill_bytes=m.group(1))
 
 
-def attn_spills(logs: dict) -> None:
-    """Kernels 3 and 4 at the flagship's plans (line-graph and atom conv,
-    f32 and bf16: hidden 256, 4 heads) must spill nothing: nvcc's report
-    of each of those instantiations (a library built by an earlier run in
-    the same checkout has none to read)."""
+def layout_spills(logs: dict) -> None:
+    """Kernels 3, 4, 1 and 2 (attn_kv.cuh's layout) at the flagship's plans
+    (line-graph and atom conv, f32 and bf16: hidden 256, 4 heads) must
+    spill nothing: nvcc's report of each of those instantiations (a library
+    built by an earlier run in the same checkout has none to read)."""
+    from gnnep_tpu_torch.ops.cuda import aggregate as ag
     from gnnep_tpu_torch.ops.cuda import attention as at
-    for name in ("attn_fwd", "attn_bwd"):
+    for name in ("attn_fwd", "attn_bwd", "softmax_aggregate_fwd",
+                 "softmax_aggregate_bwd"):
         if name not in logs:
             say("build", kernel=name, spill_report="none: built by an "
                 "earlier run in this checkout")
@@ -364,11 +368,15 @@ def attn_spills(logs: dict) -> None:
         flagship = {}
         for item, mangled in ((4, "f"), (2, "13__nv_bfloat16")):
             for n, e_total in ((7552, 74880), (768, 7552)):
-                plan = at.attention_plan(n, e_total, 256, 4, item, 0, 0, 0,
-                                         backward=name == "attn_bwd")
+                backward = name.endswith("_bwd")
+                plan = (at.attention_plan(n, e_total, 256, 4, item, 0, 0, 0,
+                                          backward=backward)
+                        if name.startswith("attn") else
+                        ag.aggregate_plan(n, e_total, 256, 4, item, 0,
+                                          backward=backward))
                 key = (f"{mangled}Li{plan.span}ELi{plan.word}ELi"
                        f"{plan.slabs}E")
-                if name == "attn_fwd":
+                if not backward or name == "softmax_aggregate_bwd":
                     key += f"Lb{int(plan.stream)}E"
                 flagship[key] = plan
         func, seen = "", {}
@@ -918,16 +926,17 @@ def attn_inputs(case):
 
 
 def agg_inputs(rng, case):
-    """Kernel 1's inputs from an eproj case: f32 [heads, E] logits from the
-    rng (spread as q·k/√c of unit rows, about 2), written as −1e30 where
-    mask2 is 0 as the conv writes them; v is kv's second half."""
+    """Kernel 1's inputs from an eproj case, in the kernels' [E, heads]
+    layout: f32 logits from the rng (spread as q·k/√c of unit rows, about
+    2), written as −1e30 where mask2 is 0 as the conv writes them, and the
+    case's dropout scale transposed; v is kv's second half."""
     import torch
     heads, e_total = case["scale_t"].shape
     logits = torch.from_numpy(rng.normal(size=(heads, e_total)).astype(
-        np.float32) * 2.0).to(case["q"].device)
-    logits = torch.where(case["mask2"][None, :] > 0, logits,
+        np.float32) * 2.0).to(case["q"].device).t()
+    logits = torch.where(case["mask2"][:, None] > 0, logits,
                          torch.full_like(logits, NEG)).contiguous()
-    return dict(logits_t=logits, scale_t=case["scale_t"],
+    return dict(logits=logits, scale=case["scale_t"].t().contiguous(),
                 v=case["kv"][:, case["q"].shape[1]:].contiguous(),
                 row_ptr=case["row_ptr"], dst=case["dst"], mask2=case["mask2"],
                 heads=heads, n=case["q"].shape[0])
@@ -952,7 +961,21 @@ def attn_plan(c, backward=False):
 
 
 def agg_fwd_args(c):
-    return (c["logits_t"], c["scale_t"], c["v"], c["row_ptr"])
+    return (c["logits"], c["scale"], c["v"], c["row_ptr"])
+
+
+def agg_plan(c, backward=False):
+    """Kernel 1's plan (kernel 2's with `backward`) for case `c`: the
+    wrapper's own (None), or with `c["hpw"]` heads to a warp and
+    `c["split"]` warps to a row."""
+    if c.get("hpw") is None and c.get("split") is None:
+        return None
+    from gnnep_tpu_torch.ops.cuda import aggregate as ag
+    v = c["v"]
+    return ag.aggregate_plan(c["n"], v.shape[0], v.shape[1], c["heads"],
+                             v.element_size(), v.data_ptr(),
+                             heads_per_warp=c.get("hpw"),
+                             split=c.get("split"), backward=backward)
 
 
 def run_fwd(kernel, c):
@@ -968,7 +991,7 @@ def run_fwd(kernel, c):
         torch.cuda.synchronize()
         return kern, at.attention_plain(*args, c["dst"], heads=c["heads"])
     args = agg_fwd_args(c)
-    kern = ag.aggregate_cuda(*args, heads=c["heads"])
+    kern = ag.aggregate_cuda(*args, heads=c["heads"], plan=agg_plan(c))
     torch.cuda.synchronize()
     return kern, ag.aggregate_plain(*args, c["dst"], heads=c["heads"])
 
@@ -986,7 +1009,8 @@ def rung_bwd_inputs(kernel, c, g_seed=0):
         _, mx, den = at.attention_cuda(*attn_fwd_args(c), c["row_ptr"],
                                        heads=c["heads"], plan=attn_plan(c))
         return attn_fwd_args(c) + (c["row_ptr"], g, mx, den)
-    _, mx, den = ag.aggregate_cuda(*agg_fwd_args(c), heads=c["heads"])
+    _, mx, den = ag.aggregate_cuda(*agg_fwd_args(c), heads=c["heads"],
+                                   plan=agg_plan(c))
     return agg_fwd_args(c) + (g, mx, den)
 
 
@@ -1011,7 +1035,8 @@ def run_bwd(kernel, c, args):
         kern = at.attention_bwd_cuda(*args, heads=c["heads"],
                                      plan=attn_plan(c, backward=True))
     else:
-        kern = ag.aggregate_bwd_cuda(*args, heads=c["heads"])
+        kern = ag.aggregate_bwd_cuda(*args, heads=c["heads"],
+                                     plan=agg_plan(c, backward=True))
     torch.cuda.synchronize()
     return kern, run_bwd_plain(kernel, c, args)
 
@@ -1071,7 +1096,7 @@ def check_rung_bwd(kernel, name, c, tol):
                 "dk": (kern[1], plain[1], live),
                 "dv": (kern[2], plain[2], live)}
     else:
-        rows = {"dl_t": (kern[0].t(), plain[0].t(), live),
+        rows = {"dl": (kern[0], plain[0], live),
                 "dv": (kern[1], plain[1], live)}
     errs, share = {}, 0.0
     for what, (a, b, keep) in rows.items():
@@ -1195,14 +1220,127 @@ def check_attn_bwd_one_kernel(c):
         cuda_kernels=len(kernels), name=repr(kernels[0][:60]))
 
 
+def agg_outputs(c, offset=0):
+    """Kernel 1's (out, max, denom) and kernel 2's (dl_t, dv) of case `c`
+    on its plan, the cotangent seeded; with `offset`, v and g copied into
+    contiguous views that many bytes past a 256-byte aligned base (a
+    tensor whose elements cannot sit there stays where it is)."""
+    import torch
+    from gnnep_tpu_torch.ops.cuda import aggregate as ag
+
+    def moved(t):
+        if offset % t.element_size():
+            return t
+        skip = offset // t.element_size()
+        flat = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+        return flat[skip:].view(t.shape).copy_(t)
+
+    c = dict(c, v=moved(c["v"]))
+    fwd = ag.aggregate_cuda(*agg_fwd_args(c), heads=c["heads"],
+                            plan=agg_plan(c))
+    gen = torch.Generator(device=c["v"].device).manual_seed(0)
+    g = moved(torch.randn((c["n"], c["v"].shape[1]), generator=gen,
+                          device=c["v"].device))
+    bwd = ag.aggregate_bwd_cuda(*agg_fwd_args(c), g, fwd[1], fwd[2],
+                                heads=c["heads"],
+                                plan=agg_plan(c, backward=True))
+    torch.cuda.synchronize()
+    return fwd + bwd, agg_plan(c) or ag.aggregate_plan(
+        c["n"], c["v"].shape[0], c["v"].shape[1], c["heads"],
+        c["v"].element_size(), c["v"].data_ptr())
+
+
+def check_agg_layouts(rng, dev, dtype, tol, tag):
+    """Kernels 1 and 2 on small seeded cases with 1, 2 and all heads to a
+    warp (where a warp holds them), each with 1, 2 and 4 warps to a row:
+    head widths 8, 64 and 96, a row of 1,000 live edges (kernel 2's long
+    row, its u kept in dl_t), interior padding, an all-masked row, the
+    dummy row's tail, a dropout scale; and with v and g at 2- and 4-byte
+    offsets (the plan's narrow words), each output bitwise the aligned
+    run's. Returns the cases checked."""
+    import torch
+    degs = rng.integers(0, 12, 48)
+    degs[7] = 1000
+    cases = [("ch8", dict(n=40, heads=2, hidden=16, interior_pad=0.2,
+                          degs=rng.integers(0, 7, 40))),
+             ("ch64", dict(n=24, heads=4, hidden=256, interior_pad=0.1,
+                           degs=rng.integers(10, 60, 24))),
+             ("ch96", dict(n=16, heads=2, hidden=192, interior_pad=0.1,
+                           degs=rng.integers(1, 20, 16))),
+             ("row1000", dict(n=48, heads=4, hidden=256, interior_pad=0.0,
+                              degs=degs))]
+    checked = 0
+    for name, kw in cases:
+        case = agg_inputs(rng, eproj_case(rng, fe=16, dtype=dtype,
+                                          device=dev, dead_rows=(3,),
+                                          scale=True, **kw))
+        if name == "row1000":
+            live = int((case["mask2"][case["dst"] == 7] > 0).sum().item())
+            if live != 1000:
+                raise AssertionError(f"row1000 has {live} live edges")
+        for hpw, split in ((h, w) for h in sorted({1, 2, case["heads"]})
+                           for w in (1, 2, 4)):
+            c = dict(case, hpw=hpw, split=split)
+            try:
+                agg_plan(c)
+            except ValueError:  # a layout these heads cannot take
+                continue
+            label = f"{name}_hpw{hpw}_split{split}_{tag}"
+            check_rung_fwd("softmax_aggregate_fwd", label, c, tol)
+            check_rung_bwd("softmax_aggregate_bwd", label, c, tol)
+            want, _ = agg_outputs(c)
+            for offset in (2, 4):
+                if offset % c["v"].element_size():
+                    continue  # an f32 v 2 bytes off takes no word
+                got, plan = agg_outputs(c, offset)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(
+                        f"aggregate {label}: v and g {offset} bytes off "
+                        f"(words of {plan.word}) differ from the aligned "
+                        "run")
+                say("kernel", kernel="softmax_aggregate_fwd+bwd",
+                    case=label, base_offset_bytes=offset,
+                    word_bytes=plan.word, span_bytes=plan.span,
+                    bitwise_equal_aligned=True)
+            checked += 1
+    return checked
+
+
+def check_agg_bwd_one_kernel(c):
+    """Kernel 2 is one CUDA kernel per call: the profiler sees the one
+    launch of `softmax_aggregate_bwd_kernel`, which also zeroes the dummy
+    row's dl_t and dv, and nothing else."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gnnep_tpu_torch.ops.cuda import aggregate as ag
+    args = rung_bwd_inputs("softmax_aggregate_bwd", c)
+    ag.aggregate_bwd_cuda(*args, heads=c["heads"])
+    torch.cuda.synchronize()
+    before = ag.bwd_launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ag.aggregate_bwd_cuda(*args, heads=c["heads"])
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if (ag.bwd_launches != before + 1 or len(kernels) != 1 or not re.search(
+            r"\bsoftmax_aggregate_bwd_kernel\b", kernels[0])):
+        raise AssertionError(f"a kernel 2 call ran the CUDA kernels "
+                             f"{kernels}, not softmax_aggregate_bwd_kernel "
+                             "alone")
+    say("kernel", kernel="softmax_aggregate_bwd",
+        case="softmax_aggregate_bwd", cuda_kernels=len(kernels),
+        name=repr(kernels[0][:60]))
+
+
 def phase_kernel_rungs(dev, batch):
     """Kernels 3, 4, 1 and 2 on small seeded edge cases (head widths 8, 64
     and 96; interior padding, an all-masked row, empty rows, the dummy
     row's tail, a dropout scale) and at the flagship conv shapes of a
-    packed training batch, f32 and bf16; kernels 3 and 4 also on every
-    layout of their plan, at misaligned bases (bitwise) and on a row of
-    1,000 live edges (`check_attn_layouts`), and kernel 4 as one CUDA
-    kernel per call → {kernel: {(conv, dtype): (case, err)}}."""
+    packed training batch, f32 and bf16; each also on every layout of its
+    plan, at misaligned bases (bitwise) and on a row of 1,000 live edges
+    (`check_attn_layouts`, `check_agg_layouts`), and kernels 4 and 2 as one
+    CUDA kernel per call → {kernel: {(conv, dtype): (case, err)}}."""
     import torch
     rng = np.random.default_rng(SEED + 30)
     flagship = {k: {} for k in ("attn_fwd", "attn_bwd",
@@ -1246,14 +1384,22 @@ def phase_kernel_rungs(dev, batch):
                 # and one on the atom conv
                 for hpw, split in ((1, None), (4, None),
                                    (None, 4 if which == "lg" else 1)):
-                    c = dict(a, hpw=hpw, split=split)
                     label = f"{name}_hpw{hpw}_split{split}_{tag}"
+                    c = dict(a, hpw=hpw, split=split)
                     check_rung_fwd("attn_fwd", label, c, tol)
                     check_rung_bwd("attn_bwd", label, c, tol)
+                    c = dict(g, hpw=hpw, split=split)
+                    check_rung_fwd("softmax_aggregate_fwd", label, c, tol)
+                    check_rung_bwd("softmax_aggregate_bwd", label, c, tol)
         say("kernel", kernel="attn_fwd+attn_bwd", dtype=tag,
             layout_and_base_cases=check_attn_layouts(rng, dev, dtype, tol,
                                                      tag))
+        say("kernel", kernel="softmax_aggregate_fwd+bwd", dtype=tag,
+            layout_and_base_cases=check_agg_layouts(rng, dev, dtype, tol,
+                                                    tag))
     check_attn_bwd_one_kernel(flagship["attn_bwd"][("lg", "bfloat16")][0])
+    check_agg_bwd_one_kernel(
+        flagship["softmax_aggregate_bwd"][("lg", "bfloat16")][0])
     return flagship
 
 
@@ -2598,10 +2744,10 @@ def attn_bwd_bound_ms(c):
 
 def agg_bound_ms(c):
     """Kernel 1: every logit (they carry the mask), the live edges' rows of
-    v and scale_t, and row_ptr read once; out and the stats written once.
+    v and the scale, and row_ptr read once; out and the stats written once.
     Operations: α·v per live edge and channel, the softmax's few per (edge,
     head)."""
-    heads, e_total = c["logits_t"].shape
+    e_total, heads = c["logits"].shape
     n, hidden, item = c["n"], c["v"].shape[1], c["v"].element_size()
     live = int((c["mask2"] > 0).sum().item())
     nbytes = (item * live * hidden
@@ -2611,11 +2757,11 @@ def agg_bound_ms(c):
 
 
 def agg_bwd_bound_ms(c):
-    """Kernel 2: every logit, the live edges' rows of v and scale_t, g, the
-    stats and row_ptr read once; every column of dl_t and row of dv written
-    once. Operations: g·v and dv per live edge and channel, the softmax
+    """Kernel 2: every logit, the live edges' rows of v and the scale, g,
+    the stats and row_ptr read once; every row of dl and dv written once.
+    Operations: g·v and dv per live edge and channel, the softmax
     gradient's few per (edge, head)."""
-    heads, e_total = c["logits_t"].shape
+    e_total, heads = c["logits"].shape
     n, hidden, item = c["n"], c["v"].shape[1], c["v"].element_size()
     live = int(((c["mask2"] > 0) & (c["dst"] != n - 1)).sum().item())
     nbytes = (item * (live * hidden + e_total * hidden)
@@ -2643,17 +2789,21 @@ def phase_rung_times(rung_flag):
         lambda c: ag.aggregate_cuda(*agg_fwd_args(c), heads=c["heads"]),
         lambda c: ag.aggregate_plain(*agg_fwd_args(c), c["dst"],
                                      heads=c["heads"]),
-        agg_bound_ms)
+        agg_bound_ms,
+        floor=lambda c: ag.aggregate_empty_cuda(c["v"], c["n"],
+                                                heads=c["heads"]))
     for kernel, bound in (("attn_bwd", attn_bwd_bound_ms),
                           ("softmax_aggregate_bwd", agg_bwd_bound_ms)):
         args = {id(c): rung_bwd_inputs(kernel, c)
                 for c, _ in rung_flag[kernel].values()}
         cuda = (at.attention_bwd_cuda if kernel == "attn_bwd"
                 else ag.aggregate_bwd_cuda)
-        floor = (None if kernel != "attn_bwd" else
-                 lambda c: at.attention_empty_cuda(
-                     c["q"], c["k"], c["v"], heads=c["heads"],
-                     backward=True))
+        floor = ((lambda c: at.attention_empty_cuda(
+            c["q"], c["k"], c["v"], heads=c["heads"], backward=True))
+            if kernel == "attn_bwd" else
+            (lambda c: ag.aggregate_empty_cuda(c["v"], c["n"],
+                                               heads=c["heads"],
+                                               backward=True)))
         out[kernel] = kernel_times(
             kernel, rung_flag[kernel],
             lambda c, cuda=cuda: cuda(*args[id(c)], heads=c["heads"]),
@@ -2841,7 +2991,7 @@ def kernel_times(name, flagship, run_kernel, run_plain, bound_fn,
     `library2 = (name, fn)` a second such call where `fn(case)` does not
     return None. `floor(case)` launches an empty kernel on the kernel's own
     grid and block, timed the same way: the launch latency under a chain
-    (kernels 7 and 11). With `split` (kernels 6 and 9), also each CUDA
+    (kernels 1-4, 7 and 11). With `split` (kernels 6 and 9), also each CUDA
     kernel's device ms (from torch.profiler) and the three products' time
     as `torch.matmul` calls, a diagnostic floor that the port never
     calls."""

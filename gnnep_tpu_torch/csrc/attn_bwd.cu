@@ -97,36 +97,11 @@ struct Args {
 template <typename T>
 __device__ void zero_tail(const Args& a, int tb) {
   const size_t row_bytes = static_cast<size_t>(a.hidden) * sizeof(T);
-  const size_t lo = static_cast<size_t>(a.row_ptr[a.n - 1]) * row_bytes;
-  const size_t hi = static_cast<size_t>(a.e_total) * row_bytes;
-  char* dk = static_cast<char*>(a.dk);
-  char* dv = static_cast<char*>(a.dv);
-  const size_t lo16 = (lo + 15) / 16 * 16, hi16 = hi / 16 * 16;
-  const size_t stride = static_cast<size_t>(a.lay.tail_blocks) * blockDim.x;
-  const size_t me = static_cast<size_t>(tb) * blockDim.x + threadIdx.x;
-  if (lo16 >= hi16) {  // under 32 bytes: 2-byte stores (rows are whole T)
-    for (size_t b = lo + 2 * me; b < hi; b += 2 * stride) {
-      *reinterpret_cast<uint16_t*>(dk + b) = 0;
-      *reinterpret_cast<uint16_t*>(dv + b) = 0;
-    }
-    return;
-  }
-  for (size_t i = lo16 / 16 + me; i < hi16 / 16; i += stride) {
-    reinterpret_cast<uint4*>(dk)[i] = make_uint4(0, 0, 0, 0);
-    reinterpret_cast<uint4*>(dv)[i] = make_uint4(0, 0, 0, 0);
-  }
-  // the unaligned ends, under 16 bytes each
-  if (me < 8) {
-    const size_t b0 = lo + 2 * me, b1 = hi16 + 2 * me;
-    if (b0 < lo16) {
-      *reinterpret_cast<uint16_t*>(dk + b0) = 0;
-      *reinterpret_cast<uint16_t*>(dv + b0) = 0;
-    }
-    if (b1 < hi) {
-      *reinterpret_cast<uint16_t*>(dk + b1) = 0;
-      *reinterpret_cast<uint16_t*>(dv + b1) = 0;
-    }
-  }
+  char* const rows[2] = {static_cast<char*>(a.dk), static_cast<char*>(a.dv)};
+  zero_bytes<2>(rows, static_cast<size_t>(a.row_ptr[a.n - 1]) * row_bytes,
+                static_cast<size_t>(a.e_total) * row_bytes,
+                static_cast<size_t>(tb) * blockDim.x + threadIdx.x,
+                static_cast<size_t>(a.lay.tail_blocks) * blockDim.x);
 }
 
 // SPAN bytes a slot in words of W bytes, S slots a lane in each pass

@@ -1,15 +1,17 @@
 // attn_kv.cuh: what the kv+e attention's forward (attn_fwd.cu, kernel 3)
-// and backward (attn_bwd.cu, kernel 4) share: how a warp's lanes hold a
-// row, the words they move it in, the sums over a head's lanes, and the
-// lanes that do a group's softmax bookkeeping.
+// and backward (attn_bwd.cu, kernel 4) and the external-logits
+// softmax-aggregate's (softmax_aggregate_fwd.cu and _bwd.cu, kernels 1 and
+// 2) share: how a warp's lanes hold a row, the words they move it in, the
+// sums over a head's lanes, and the lanes that do a group's softmax
+// bookkeeping.
 //
 // A row of `hidden` channels (heads x ch) is cut into spans of SPAN bytes
 // (16, 8, 4 or 2; VEC = SPAN / sizeof(T) channels), never straddling two
 // heads: SPAN divides the head's bytes. A lane's slot holds one span, moved
 // as SPAN / W words of W bytes. The launch plan
-// (gnnep_tpu_torch/ops/cuda/attention.py:attention_plan) picks SPAN from the
-// head's bytes and the layout alone, W from SPAN and the three base
-// addresses, and the heads a warp holds (hpw):
+// (gnnep_tpu_torch/ops/cuda/kv_layout.py:kv_plan) picks SPAN from the
+// head's bytes and the layout alone, W from SPAN and the base addresses of
+// the rows the kernel moves in words, and the heads a warp holds (hpw):
 //
 //  - grouped (a head of at most 32 spans, wph): a head's spans sit in one
 //    aligned group of `gl` lanes (gl = wph rounded up to a power of two),
@@ -149,13 +151,20 @@ struct Span {
 #pragma unroll
     for (int i = 0; i < kVec; ++i) x[i] = Elem<T>::widen(u.e[i]);
   }
-  // x rounded to T, stored as SPAN / W words
+  // x rounded to T, stored as SPAN / W words; kStream: streaming stores,
+  // for rows written once to tensors larger than L2
+  template <bool kStream = false>
   __device__ __forceinline__ static void store(T* p, const float* x) {
     U u;
 #pragma unroll
     for (int i = 0; i < kVec; ++i) u.e[i] = Elem<T>::narrow(x[i]);
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) reinterpret_cast<R*>(p)[i] = u.w[i];
+    for (int i = 0; i < kWords; ++i) {
+      if constexpr (kStream)
+        __stcs(reinterpret_cast<R*>(p) + i, u.w[i]);
+      else
+        reinterpret_cast<R*>(p)[i] = u.w[i];
+    }
   }
 };
 
@@ -293,15 +302,85 @@ __device__ __forceinline__ void row_bounds(const int* row_ptr, int t,
   *hi = __shfl_sync(kFull, b, 1);
 }
 
+// The external-logits kernels' clamp, as the TPU kernels'
+// (csr_attention.py:93-96): a logit of -1e30 (masked) never counts.
+__device__ __forceinline__ bool counts(float l) { return l > 0.5f * kNeg; }
+
+// x[h][u] of a warp's shared rows, read unconditionally: h and u wrap into
+// the rows (a caller selects the value only where they are in range), so
+// the read needs no branch and a load it predicates stays a predicated load
+__device__ __forceinline__ float row_at(const float (*x)[kChunk + 1], int h,
+                                        int u) {
+  return x[h & (kMaxHeads - 1)][u & (kChunk - 1)];
+}
+
+// Lane u of a chunk of `cnt` edges from j0, where its group of G edges is
+// one of this warp's (every split-th from the r-th; split a power of two):
+// the values of the warp's nh heads from h0 at edge j0 + u of NA [E, heads]
+// arrays src[i] (a null one reads as 1), into the shared rows dst[i][h][u].
+// An edge's heads are one contiguous run; every load is issued before the
+// first store.
+template <int G, int NA>
+__device__ __forceinline__ void chunk_to_shared(
+    const float* const (&src)[NA], int heads, int h0, int nh, int j0,
+    int cnt, int lane, int r, int split,
+    float (*const (&dst)[NA])[kChunk + 1]) {
+  if (lane >= cnt || ((lane / G) & (split - 1)) != r) return;
+  const size_t at = static_cast<size_t>(j0 + lane) * heads + h0;
+  float xv[NA][kMaxHeads];
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int h = 0; h < kMaxHeads; ++h)
+      if (h < nh) xv[i][h] = src[i] ? src[i][at + h] : 1.f;
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int h = 0; h < kMaxHeads; ++h)
+      if (h < nh) dst[i][h][lane] = xv[i][h];
+}
+
+// Zero bytes [lo, hi) of each of the NP arrays p (16-byte aligned bases;
+// lo and hi even): 16-byte stores inside, 2-byte stores at the ends;
+// thread `me` of `stride` threads. A backward's first blocks zero the
+// dummy row's per-edge gradient rows with it.
+template <int NP>
+__device__ __forceinline__ void zero_bytes(char* const (&p)[NP], size_t lo,
+                                           size_t hi, size_t me,
+                                           size_t stride) {
+  const size_t lo16 = (lo + 15) / 16 * 16, hi16 = hi / 16 * 16;
+  if (lo16 >= hi16) {  // under 32 bytes: 2-byte stores
+    for (size_t b = lo + 2 * me; b < hi; b += 2 * stride)
+#pragma unroll
+      for (int i = 0; i < NP; ++i) *reinterpret_cast<uint16_t*>(p[i] + b) = 0;
+    return;
+  }
+  for (size_t w = lo16 / 16 + me; w < hi16 / 16; w += stride)
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      reinterpret_cast<uint4*>(p[i])[w] = make_uint4(0, 0, 0, 0);
+  // the unaligned ends, under 16 bytes each
+  if (me < 8) {
+    const size_t b0 = lo + 2 * me, b1 = hi16 + 2 * me;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      if (b0 < lo16) *reinterpret_cast<uint16_t*>(p[i] + b0) = 0;
+      if (b1 < hi) *reinterpret_cast<uint16_t*>(p[i] + b1) = 0;
+    }
+  }
+}
+
 // The layout of a plan: spans of `span` bytes moved in words of `word`,
 // `slabs` spans per lane and pass, `hpw` heads per warp, `split` warps per
 // target, `warps` per block and `tail_blocks`; false where the plan does
 // not fit the shape, the type or a base address (each pointer in `ptrs`
-// must be aligned to the word). G = kEdges / slabs edges to a group.
+// must be aligned to the word). G = kEdges / slabs edges to a group; the
+// kernel's pair lanes take windows of `pair_mult` groups, so hpw such
+// windows must fit a warp.
 inline bool make_layout(int n, int hidden, int heads, int item, int span,
                         int word, int slabs, int hpw, int split, int warps,
                         int tail_blocks, const void* const* ptrs, int nptrs,
-                        Layout* L) {
+                        Layout* L, int pair_mult = 1) {
   if (n < 1 || heads < 1 || hidden % heads) return false;
   const int ch = hidden / heads;
   auto pow2 = [](int b) { return b == 2 || b == 4 || b == 8 || b == 16; };
@@ -314,7 +393,7 @@ inline bool make_layout(int n, int hidden, int heads, int item, int span,
   if (warps < 1 || warps > kMaxWarps || tail_blocks < 0) return false;
   if (!(split == 1 || split == 2 || split == 4) || warps % split) return false;
   if (hpw < 1 || hpw > heads || hpw > kMaxHeads ||
-      hpw * (kEdges / slabs) > 32)
+      hpw * pair_mult * (kEdges / slabs) > 32)
     return false;
   L->hpw = hpw;
   L->wph = ch * item / span;

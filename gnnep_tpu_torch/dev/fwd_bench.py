@@ -8,15 +8,19 @@ a checkout), as `bwd_bench.py` does, so that one call can time two trees.
 For the line-graph and the atom conv of the trainer's first packed batch
 (`chip_smoke.py`'s fixture and cases), f32 and bf16, it prints each
 kernel's device ms per launch: kernels 5 and 8, and kernels 1-4 on the
-same case (kernels 3 and 4 with their bound, and, in a tree that has it,
-their plan and the empty-launch floor on the plan's grid); at the line-graph conv in f32 the error of kernels 5 and 8
-against a float64 reference beside the plain f32 version's own; the ladder's device ms per stage (kernel 10); nvcc's
-register report and the tensor-core and FMA instruction counts of each
-built forward kernel.
+same case (kernels 1-4 with their bound, and, in a tree that has it, their
+plan and the empty-launch floor on the plan's grid); at the line-graph
+conv in f32 the error of kernels 5 and 8 against a float64 reference
+beside the plain f32 version's own; the ladder's device ms per stage
+(kernel 10); nvcc's register report and the tensor-core and FMA
+instruction counts of each built forward kernel.
 
 With `--widths` it times instead kernels 1-6, 8 and 9 at the line-graph
 conv's CSR structure at each of chip_smoke's WIDTHS (hidden 512 / 4 heads,
-256 / 1, 384 / 2, Fe = hidden), f32 and bf16.
+256 / 1, 384 / 2, Fe = hidden), f32 and bf16, kernels 1-4 with their bound
+and, in a tree that has it, their plan. With `--rungs` it times kernels 1-4
+alone (no kernel 5 or 8, no ladder): the A/B of the kv+e and
+external-logits rungs' kernels.
 """
 from __future__ import annotations
 
@@ -63,22 +67,47 @@ def f64_error(out, ref) -> float:
     return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
 
 
-def attn_extras(cs, at, c, kernel) -> dict:
-    """Kernel 3's or 4's bound at case `c`, and where the package has them
-    (kernels with a plan) its plan and an empty kernel on the plan's grid and
-    block, timed the same way (the launch floor)."""
-    bound = (cs.attn_bound_ms if kernel == "attn_fwd"
-             else cs.attn_bwd_bound_ms)(c)[0]
-    out = {"bound_ms": bound}
-    if hasattr(at, "attention_empty_cuda"):
-        import dataclasses
+BOUNDS = {"attn_fwd": "attn_bound_ms", "attn_bwd": "attn_bwd_bound_ms",
+          "softmax_aggregate_fwd": "agg_bound_ms",
+          "softmax_aggregate_bwd": "agg_bwd_bound_ms"}
+
+
+def plan_extras(cs, c, kernel, floor=True) -> dict:
+    """Kernel 1's, 2's, 3's or 4's bound at case `c`, and where the package
+    has them (kernels with a plan) its plan and (with `floor`) an empty
+    kernel on the plan's grid and block, timed the same way (the launch
+    floor)."""
+    import dataclasses
+    from gnnep_tpu_torch.ops.cuda import aggregate as ag
+    from gnnep_tpu_torch.ops.cuda import attention as at
+    out = {"bound_ms": getattr(cs, BOUNDS[kernel])(c)[0]}
+    backward = kernel.endswith("_bwd")
+    if kernel.startswith("attn"):
+        if not hasattr(at, "attention_empty_cuda"):
+            return out
         q, k, v = c["q"], c["k"], c["v"]
-        out["plan"] = dataclasses.asdict(at.attention_plan(
-            q.shape[0], k.shape[0], q.shape[1], c["heads"],
-            q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            backward=kernel == "attn_bwd"))
-        out["empty_launch_ms"] = cs.device_ms(lambda: at.attention_empty_cuda(
-            q, k, v, heads=c["heads"], backward=kernel == "attn_bwd"))
+        plan = at.attention_plan(q.shape[0], k.shape[0], q.shape[1],
+                                 c["heads"], q.element_size(), q.data_ptr(),
+                                 k.data_ptr(), v.data_ptr(),
+                                 backward=backward)
+
+        def empty():
+            at.attention_empty_cuda(q, k, v, heads=c["heads"],
+                                    backward=backward)
+    else:
+        if not hasattr(ag, "aggregate_empty_cuda"):
+            return out
+        v = c["v"]
+        plan = ag.aggregate_plan(c["n"], v.shape[0], v.shape[1], c["heads"],
+                                 v.element_size(), v.data_ptr(),
+                                 backward=backward)
+
+        def empty():
+            ag.aggregate_empty_cuda(v, c["n"], heads=c["heads"],
+                                    backward=backward)
+    out["plan"] = dataclasses.asdict(plan)
+    if floor:
+        out["empty_launch_ms"] = cs.device_ms(empty)
     return out
 
 
@@ -128,6 +157,9 @@ def width_times(cs, batch, dev) -> list:
             for kernel, run in runs.items():
                 r = {"kernel": kernel, "hidden": hidden, "heads": heads,
                      "dtype": tag, "ms": cs.device_ms(run)}
+                if kernel in BOUNDS:
+                    r.update(plan_extras(cs, ca if kernel.startswith("attn")
+                                         else cg, kernel, floor=False))
                 print(f"[width] {json.dumps(r)}", flush=True)
                 out.append(r)
     return out
@@ -139,6 +171,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None)
     parser.add_argument("--widths", action="store_true")
+    parser.add_argument("--rungs", action="store_true",
+                        help="kernels 1-4 alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("fwd_bench: no CUDA device", file=sys.stderr)
@@ -164,14 +198,16 @@ def main(argv=None) -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(rec, indent=1))
         return 0
-    names = ["attn_eproj_fwd", "attn_span_fwd", "attn_fwd", "attn_bwd",
-             "softmax_aggregate_fwd", "softmax_aggregate_bwd"]
-    build.build(names)
+    names = ["attn_fwd", "attn_bwd", "softmax_aggregate_fwd",
+             "softmax_aggregate_bwd"]
+    build.build(names if args.rungs
+                else ["attn_eproj_fwd", "attn_span_fwd"] + names)
     for name, log in build.build_logs.items():
         for line in log.splitlines():
             if re.search(r"registers|spill|Compiling entry", line):
                 print(f"[nvcc] {name}: {line.strip()}", flush=True)
-    sass = {k: sass_counts(k) for k in ("attn_eproj_fwd", "attn_span_fwd")}
+    sass = {k: sass_counts(k) for k in ("attn_eproj_fwd", "attn_span_fwd")
+            if not args.rungs}
     for k, funcs in sass.items():
         for func, c in funcs.items():
             print(f"[sass] {k} {func} " + " ".join(
@@ -187,17 +223,19 @@ def main(argv=None) -> int:
             tag = "float32" if dtype == torch.float32 else "bfloat16"
             c5 = cs.batch_case(rng, batch, which, hidden=256, dtype=dtype,
                                device=dev)
-            c8 = cs.span_batch_case(rng, batch, which, hidden=256,
-                                    dtype=dtype, device=dev)
-            a5 = (c5["q"], c5["kv"], c5["ea"], c5["w_edge"], c5["scale_t"],
-                  c5["mask2"], c5["row_ptr"], c5["dst"])
-            a8 = cs.span_fwd_args(c8) + (c8["row_ptr"], c8["src"],
-                                         c8["dst"])
-            runs = {
-                "attn_eproj_fwd": lambda: ep.attention_eproj_cuda(*a5,
-                                                                  heads=4),
-                "attn_span_fwd": lambda: sp.attention_span_cuda(*a8,
-                                                                heads=4)}
+            runs = {}
+            if not args.rungs:
+                c8 = cs.span_batch_case(rng, batch, which, hidden=256,
+                                        dtype=dtype, device=dev)
+                a5 = (c5["q"], c5["kv"], c5["ea"], c5["w_edge"],
+                      c5["scale_t"], c5["mask2"], c5["row_ptr"], c5["dst"])
+                a8 = cs.span_fwd_args(c8) + (c8["row_ptr"], c8["src"],
+                                             c8["dst"])
+                runs = {
+                    "attn_eproj_fwd": lambda: ep.attention_eproj_cuda(
+                        *a5, heads=4),
+                    "attn_span_fwd": lambda: sp.attention_span_cuda(
+                        *a8, heads=4)}
             ca, cg = cs.attn_inputs(c5), cs.agg_inputs(rng, c5)
             b3 = cs.rung_bwd_inputs("attn_bwd", ca)
             b1 = cs.rung_bwd_inputs("softmax_aggregate_bwd", cg)
@@ -211,11 +249,12 @@ def main(argv=None) -> int:
             for kernel, run in runs.items():
                 r = {"kernel": kernel, "conv": which, "dtype": tag,
                      "ms": cs.device_ms(run)}
-                if kernel in ("attn_fwd", "attn_bwd"):
-                    r.update(attn_extras(cs, at, ca, kernel))
+                if kernel in BOUNDS:
+                    r.update(plan_extras(cs, ca if kernel.startswith("attn")
+                                         else cg, kernel))
                 print(f"[bench] {json.dumps(r)}", flush=True)
                 rec["cases"].append(r)
-            if which == "lg" and tag == "float32":
+            if which == "lg" and tag == "float32" and not args.rungs:
                 ref5 = eproj_fwd_f64(*a5[:6], c5["dst"], heads=4)
                 ref8 = eproj_fwd_f64(*cs.span_fwd_args(c8), c8["dst"],
                                      heads=4, src=c8["src_plain"])
@@ -231,7 +270,7 @@ def main(argv=None) -> int:
                          heads=4)[0], ref8)}
                 print(f"[bench] {json.dumps(r)}", flush=True)
                 rec["f32_vs_float64"] = r
-        if which == "lg":
+        if which == "lg" and not args.rungs:
             for dtype in (torch.bfloat16, torch.float32):
                 tag = "float32" if dtype == torch.float32 else "bfloat16"
                 c = kl.lg_case(batch, dtype=dtype, device=dev)

@@ -17,8 +17,6 @@ kernels or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
-from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,6 +26,9 @@ from ..segment import segment_sum
 from . import build
 from .aggregate import (softmax_aggregate_edges, softmax_logit_grad,
                         softmax_probs, widen)
+from .kv_layout import (EDGES_IN_FLIGHT, L2_BYTES, MAX_WARPS,  # noqa: F401
+                        SMS, AttentionPlan, kv_plan, offsets, plan_args,
+                        shape_of)
 
 _KERNEL = "attn_fwd"
 _KERNEL_BWD = "attn_bwd"
@@ -38,10 +39,6 @@ launches = 0
 bwd_launches = 0
 
 
-# attn_kv.cuh: warps per block and heads a warp holds, at most; slabs
-# (spans a lane holds per pass) at most, and G = EDGES_IN_FLIGHT / slabs
-# edges to a group (kEdges)
-MAX_WARPS, MAX_HEADS, MAX_SLABS, EDGES_IN_FLIGHT = 8, 8, 2, 4
 # kernel 4's blocks hold at most 4 warps: at the flagship line graph 4 beat
 # 8 by 1.5 % (f32) and 2.6 % (bf16) on an H100, while kernel 3 loses 10-15 %
 # with 4 (dev/attn_variants.py; PERF.md §6)
@@ -54,44 +51,6 @@ MAX_WARPS_BWD = 4
 # bf16, on an H100 (dev/attn_variants.py; PERF.md §6). They were measured
 # at that one shape only: other target counts near them are untimed
 SPLIT_TO = {"forward": 3072, "backward": 1536}
-# the SMs, which the plan fills with at least two blocks each where the
-# targets allow, and the L2 bytes (a forward whose k and v are larger reads
-# them with evict-first loads): the card's own (`card_shape`), or an H100's
-# where the plan is asked without a card
-SMS, L2_BYTES = 132, 50 * 2 ** 20
-
-
-@functools.lru_cache(maxsize=None)
-def card_shape(index: int) -> Tuple[int, int]:
-    """(SMs, L2 bytes) of CUDA device `index`."""
-    p = torch.cuda.get_device_properties(index)
-    return p.multi_processor_count, getattr(p, "L2_cache_size", L2_BYTES)
-
-
-@dataclass(frozen=True)
-class AttentionPlan:
-    """How kernels 3 and 4 cover the rows (attn_kv.cuh). A lane's slot is a
-    span of `span` bytes of a head, moved in words of `word` bytes. A warp
-    holds `heads_per_warp` heads of one target (all of them: a warp per
-    target), `slabs` spans a lane, each head's spans in an aligned group of
-    `group` lanes; a head of more than 32 spans takes a warp alone (group
-    32) and walks it in `passes` of 32 x `slabs` spans. `split` warps share
-    a target's row, each taking every split-th group of its edges. `warps`
-    per block, `blocks` over the targets and groups of heads, and
-    `tail_blocks` more, first in the backward's grid, that zero the dummy
-    row's dk and dv rows. `stream`: the forward reads k and v with
-    evict-first loads."""
-    span: int
-    word: int
-    heads_per_warp: int
-    split: int
-    slabs: int
-    group: int
-    passes: int
-    warps: int
-    blocks: int
-    tail_blocks: int
-    stream: bool
 
 
 def attention_plan(n: int, e_total: int, hidden: int, heads: int,
@@ -101,106 +60,17 @@ def attention_plan(n: int, e_total: int, hidden: int, heads: int,
                    backward: bool = False,
                    device: Optional[torch.device] = None) -> AttentionPlan:
     """The launch plan of kernel 3 (kernel 4's with `backward`) on CUDA
-    `device` (None: an H100's SM count and L2); see `_plan`. Only the bases'
-    alignment to 16 bytes enters it, so it is worked out once per shape,
-    alignment and card."""
-    sms, l2 = (card_shape(device.index if device.index is not None
-                          else torch.cuda.current_device())
-               if device is not None and device.type == "cuda"
-               else (SMS, L2_BYTES))
-    return _plan(n, e_total, hidden, heads, itemsize, q_ptr % 16,
-                 k_ptr % 16, v_ptr % 16, heads_per_warp, split, backward,
-                 sms, l2)
-
-
-@functools.lru_cache(maxsize=256)
-def _plan(n: int, e_total: int, hidden: int, heads: int, itemsize: int,
-          q_off: int, k_off: int, v_off: int, heads_per_warp: Optional[int],
-          split: Optional[int], backward: bool, sms: int,
-          l2_bytes: int) -> AttentionPlan:
-    """The launch plan from the shape, the element size and the three base
-    addresses' offsets from 16-byte alignment alone (never the data, so a
-    captured graph replays it).
-
-    The span, and with it the layout and the order of every sum, follows
-    from the shape alone: the widest of 16, 8, 4 or 2 bytes that holds
-    whole elements and divides the head's bytes. A warp holds the heads of
-    one slab of 32 lanes (at most 8; at the flagship all 4 in bf16, 2 of
-    the 4 in f32); a head of more than 32 spans takes a warp alone, as does
-    the one head of a single-head conv, with the widest span that still
-    spreads it over 16 lanes. The word is the widest that divides the span
-    and all three bases, so a misaligned tensor changes only the load
-    instructions. A conv of fewer warps than `SPLIT_TO` (kernel 3's, or
-    kernel 4's with `backward`) splits each row over 2 or 4 warps (one
-    pass only); kernel 3 streams k and v larger than L2. A block holds 8
-    warps (kernel 4: 4), fewer where the targets would not give every SM
-    two blocks. `heads_per_warp`
-    and `split` force a layout (the checks and the benches run others).
-    Raises where no word of whole elements fits, or where a warp cannot
-    hold the heads asked for."""
-    ch = hidden // heads
-    head_bytes = ch * itemsize
-
-    def widest(ok):
-        return next((b for b in (16, 8, 4, 2) if b >= itemsize and ok(b)),
-                    None)
-
-    def grouped(span, hpw):
-        """(slabs, group) of `hpw` heads a warp at this span, or None."""
-        wph = head_bytes // span
-        group = 1 << max(0, (wph - 1).bit_length())
-        if group > 32:
-            return (2, 32) if hpw == 1 else None
-        slabs = -(-hpw // (32 // group))
-        if (hpw > min(heads, MAX_HEADS) or slabs > MAX_SLABS
-                or hpw * (EDGES_IN_FLIGHT // slabs) > 32):
-            return None
-        return slabs, group
-
-    span = widest(lambda b: head_bytes % b == 0)
-    hpw = heads_per_warp
-    if hpw is None:
-        group = 1 << max(0, (head_bytes // span - 1).bit_length())
-        hpw = min(heads, MAX_HEADS, 32 // group) if group <= 32 else 1
-    if hpw == 1:
-        span = widest(lambda b: head_bytes % b == 0 and (
-            head_bytes // b >= 16 or b == itemsize))
-    layout = grouped(span, hpw)
-    if layout is None:
-        raise ValueError(f"a warp cannot hold {hpw} of {heads} heads of "
-                         f"{head_bytes} bytes")
-    slabs, group = layout
-    passes = -(-(head_bytes // span) // (32 * slabs)) if group == 32 and \
-        head_bytes // span > 32 else 1
-    word = widest(lambda b: b <= span and not (
-        q_off % b or k_off % b or v_off % b))
-    if word is None:
-        raise ValueError(
-            f"heads of {head_bytes} bytes at bases {q_off}, {k_off} and "
-            f"{v_off} bytes past 16-byte alignment take no word of whole "
-            f"{itemsize}-byte elements (2 bytes at least)")
-    per = -(-heads // hpw)
-    if split is None:
-        want = SPLIT_TO["backward" if backward else "forward"]
-        split = next((w for w in (1, 2) if n * per * w >= want), 4)
-        split = split if passes == 1 else 1
-    if split not in (1, 2, 4) or (split > 1 and passes > 1):
-        raise ValueError(f"{split} warps cannot share a row of {passes} "
-                         "passes")
-    warps = MAX_WARPS_BWD if backward else MAX_WARPS
-    while warps > max(2, split) and -(-n // (warps // split)) * per < 2 * sms:
-        warps //= 2
-    # blocks zeroing the dummy row's dk and dv rows, one a quarter MiB of
-    # the [E, H] arena (the tail's size is the data's)
-    tail = max(1, min(sms, -(-e_total * hidden * itemsize // 2 ** 18)))
-    stream = not backward and 2 * e_total * hidden * itemsize > l2_bytes
-    return AttentionPlan(span, word, hpw, split, slabs, group, passes, warps,
-                         -(-n // (warps // split)) * per, tail, stream)
-
-
-def _plan_args(plan: AttentionPlan) -> tuple:
-    return (plan.span, plan.word, plan.slabs, plan.heads_per_warp,
-            plan.split, plan.warps)
+    `device` (None: an H100's SM count and L2); see `kv_layout.kv_plan`.
+    The word divides the three bases; rows are split below `SPLIT_TO`
+    warps; a block holds 8 warps (kernel 4: 4); kernel 3 streams k and v
+    where together they exceed L2. Only the bases' alignment to 16 bytes
+    enters it, so it is worked out once per shape, alignment and card."""
+    sms, l2 = shape_of(device)
+    return kv_plan(n, e_total, hidden, heads, itemsize,
+                   offsets((q_ptr, k_ptr, v_ptr)), heads_per_warp, split,
+                   SPLIT_TO["backward" if backward else "forward"],
+                   MAX_WARPS_BWD if backward else MAX_WARPS,
+                   not backward and 2 * e_total * hidden * itemsize > l2, sms)
 
 
 def inv_sqrt(ch: int) -> float:
@@ -362,7 +232,7 @@ def attention_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
             mask2.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
             mx.data_ptr(), den.data_ptr(), logit_s.data_ptr(), n, e_total,
             hidden, heads, inv_sqrt(hidden // heads),
-            int(q.dtype == torch.bfloat16), *_plan_args(plan),
+            int(q.dtype == torch.bfloat16), *plan_args(plan),
             int(plan.stream), stream)
     if rc != 0:
         raise RuntimeError(f"{_KERNEL} launch failed with CUDA error {rc}")
@@ -409,7 +279,7 @@ def attention_bwd_cuda(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
             den.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             s_s.data_ptr(), u_s.data_ptr(), n, e_total, hidden, heads,
             inv_sqrt(hidden // heads), int(q.dtype == torch.bfloat16),
-            *_plan_args(plan), plan.tail_blocks, stream)
+            *plan_args(plan), plan.tail_blocks, stream)
     if rc != 0:
         raise RuntimeError(f"{_KERNEL_BWD} launch failed with CUDA error "
                            f"{rc}")
@@ -431,7 +301,7 @@ def attention_empty_cuda(q: torch.Tensor, k_e: torch.Tensor,
                                   backward=backward, device=q.device)
     lib = _lib(_KERNEL_BWD if backward else _KERNEL)
     args = (n, hidden, heads, int(q.dtype == torch.bfloat16),
-            *_plan_args(plan))
+            *plan_args(plan))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = (lib.attn_bwd_empty(*args, plan.tail_blocks, stream) if backward

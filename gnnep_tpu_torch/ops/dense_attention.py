@@ -21,8 +21,9 @@ Counterpart of `gnnep_tpu.ops.dense_attention.transformer_conv_table`:
     (`ops/cuda/attention.py`);
   - external logits (`attn_fused=False`): q gathered by dst (`csr_gather`,
     whose backward is the segment-sum kernel over the identity order), the
-    [heads, E] logits and their mask as plain tensor ops, then the segment
-    softmax-aggregate (`ops/cuda/aggregate.py`);
+    [E, heads] logits and their mask as plain tensor ops, then the segment
+    softmax-aggregate (`ops/cuda/aggregate.py`; the JAX package's [heads, E]
+    is a TPU tiling choice);
 - attention dropout as a [heads, E] scale on α, drawn from a generator;
 - the β blend.
 
@@ -37,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from .cuda.aggregate import fused_aggregate_t
+from .cuda.aggregate import fused_aggregate
 from .cuda.attention import fused_attention
 from .cuda.attention_eproj import fused_attention_eproj
 from .cuda.attention_span import fused_attention_span
@@ -107,15 +108,15 @@ def transformer_conv_table(params: TransformerConvParams, x: torch.Tensor,
         msg = fused_attention(q, k_j, v_j, row_ptr, dst, heads=heads,
                               scale_t=scale_t, mask_e=edge_mask)
         return beta_blend(params.w_beta, r, msg.to(x.dtype))
-    # the external [heads, E] logits: the product q_dst·k_j in the compute
+    # the external [E, heads] logits: the product q_dst·k_j in the compute
     # type, summed per head in f32 (the JAX package's block-sum GEMM)
     ch = hidden // heads
     q_dst = csr_gather(q, dst, row_ptr[:-1])
-    logits_t = ((q_dst * k_j).float().reshape(-1, heads, ch).sum(-1).t()
-                / math.sqrt(ch))
+    logits = ((q_dst * k_j).float().reshape(-1, heads, ch).sum(-1)
+              / math.sqrt(ch))
     if edge_mask is not None:
-        logits_t = torch.where(edge_mask[None, :] > 0, logits_t,
-                               torch.full_like(logits_t, _NEG))
-    msg = fused_aggregate_t(logits_t, v_j, row_ptr, dst=dst, heads=heads,
-                            scale_t=scale_t)
+        logits = torch.where(edge_mask[:, None] > 0, logits,
+                             torch.full_like(logits, _NEG))
+    msg = fused_aggregate(logits, v_j, row_ptr, dst=dst, heads=heads,
+                          scale=None if scale_t is None else scale_t.t())
     return beta_blend(params.w_beta, r, msg.to(x.dtype))

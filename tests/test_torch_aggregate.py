@@ -201,6 +201,14 @@ def cuda():
     return resolve_device("cuda")
 
 
+def _card_args(c, dtype, device):
+    """Kernel 1's arguments on `device`: logits and scale in the kernels'
+    [E, heads] layout, v in `dtype`, row_ptr."""
+    return (_t(c, "logits", torch.float32, device).t().contiguous(),
+            _t(c, "scale", torch.float32, device).t().contiguous(),
+            _t(c, "v", dtype, device), _t(c, "row_ptr", torch.int32, device))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
@@ -209,9 +217,7 @@ def test_kernels_match_plain_on_card(cuda, dtype, tol, heads, hidden):
     """Head widths 64, 8 and 96; forward on the real rows, backward as
     `_compare`, each within `tol` of the plain tensor's largest value."""
     c = _case(np.random.default_rng(11), heads=heads, hidden=hidden)
-    args = (_t(c, "logits", torch.float32, cuda),
-            _t(c, "scale", torch.float32, cuda), _t(c, "v", dtype, cuda),
-            _t(c, "row_ptr", torch.int32, cuda))
+    args = _card_args(c, dtype, cuda)
     dst = _t(c, "dst", torch.int64, cuda)
     before = (ag.launches, ag.bwd_launches)
     got = ag.aggregate_cuda(*args, heads=heads)
@@ -225,8 +231,10 @@ def test_kernels_match_plain_on_card(cuda, dtype, tol, heads, hidden):
     torch.cuda.synchronize()
     assert (ag.launches, ag.bwd_launches) == (before[0] + 1, before[1] + 1)
     ref = ag.aggregate_bwd_plain(*args, dst, g, got[1], got[2], heads=heads)
-    for name, a, b in _compare(bwd, [r.float().cpu().numpy() for r in ref],
-                               c):
+    # _compare takes dl in the JAX layout [heads, E]
+    for name, a, b in _compare((bwd[0].t(), bwd[1]),
+                               [r.float().cpu().numpy()
+                                for r in (ref[0].t(), ref[1])], c):
         sc = max(np.abs(b).max(), 1e-30)
         np.testing.assert_allclose(a / sc, b / sc, rtol=tol, atol=tol,
                                    err_msg=name)
@@ -244,3 +252,138 @@ def test_identity_order_segment_sum_on_card(cuda):
     torch.testing.assert_close(got, ss.csr_segment_sum_plain(vals, None,
                                                              starts),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_kernels_without_scale_on_card(cuda):
+    """No scale (no dropout): kernels 1 and 2 read none and equal their
+    plain versions with scale None, which equal them with a scale of
+    ones."""
+    c = _case(np.random.default_rng(12), heads=4, hidden=256)
+    logits, _, v, row_ptr = _card_args(c, torch.float32, cuda)
+    dst = _t(c, "dst", torch.int64, cuda)
+    got = ag.aggregate_cuda(logits, None, v, row_ptr, heads=4)
+    want = ag.aggregate_plain(logits, torch.ones_like(logits), v, row_ptr,
+                              dst, heads=4)
+    g = torch.from_numpy(_cotangent(c)).to(cuda)
+    bwd = ag.aggregate_bwd_cuda(logits, None, v, row_ptr, g, got[1], got[2],
+                                heads=4)
+    ref = ag.aggregate_bwd_plain(logits, None, v, row_ptr, dst, g, got[1],
+                                 got[2], heads=4)
+    torch.cuda.synchronize()
+    for a, b in zip(got + bwd, want + ref):
+        _near(a[:-1].float(), b[:-1].float(), 1e-4, "no scale")
+
+
+def _arena(rng, heads, hidden, degs, tail=37, pad=0.1):
+    """A dst-sorted arena with `degs[t]` edges into target t (row 7 all
+    live; row 3 all masked), masked interior padding at rate `pad`, the
+    dummy row's tail of `tail` edges, [heads, E] logits at −1e30 where
+    masked, a dropout scale and f32 values v."""
+    degs = list(degs) + [0]
+    n = len(degs)
+    dst = np.repeat(np.arange(n), degs)
+    e_real = dst.size
+    dst = np.concatenate([dst, np.full(tail, n - 1)])
+    e_total = dst.size
+    mask = (np.arange(e_total) < e_real) & (rng.random(e_total) >= pad)
+    mask[dst == 7] = np.arange(e_total)[dst == 7] < e_real
+    mask[dst == 3] = False
+    logits = rng.normal(size=(heads, e_total)) * 2.0
+    return dict(
+        logits=np.where(mask[None], logits, NEG).astype(np.float32),
+        scale=((rng.random((heads, e_total)) > 0.25) / 0.75).astype(
+            np.float32),
+        v=rng.normal(size=(e_total, hidden)).astype(np.float32),
+        row_ptr=np.searchsorted(dst, np.arange(n + 1)).astype(np.int32),
+        dst=dst, mask=mask.astype(np.float32), heads=heads, n=n)
+
+
+def _at_offset(t, offset):
+    """`t` copied into a contiguous view `offset` bytes past an aligned
+    base (no move where its elements cannot sit there)."""
+    if offset % t.element_size():
+        return t
+    skip = offset // t.element_size()
+    flat = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    return flat[skip:].view(t.shape).copy_(t)
+
+
+def _near(a, b, tol, what):
+    sc = max(b.abs().max().item(), 1e-30) if b.numel() else 1.0
+    err = (a - b).abs().max().item() if b.numel() else 0.0
+    assert err <= tol * sc, f"{what}: {err:.3e} > {tol} x {sc:.3e}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("heads,hidden", [(2, 16), (4, 256), (2, 192),
+                                          (1, 256), (4, 512)])
+def test_kernel_layouts_on_card(cuda, dtype, tol, heads, hidden):
+    """Kernels 1 and 2 on every layout their plan can take here (1, 2 and
+    all heads to a warp; 1, 2 and 4 warps to a row), on rows of 0 to 40
+    edges beside a row of 1,000 live edges (kernel 2 keeps its u in dl_t),
+    interior padding, an all-masked row, a dropout scale and the dummy
+    row's tail: each output within `tol` of the plain tensor's largest
+    magnitude, the dead edges' dl and dv exact zeros; and with v (and g) 2
+    and 4 bytes off an aligned base (narrower words), bitwise the aligned
+    run."""
+    rng = np.random.default_rng(hidden + heads)
+    degs = rng.integers(0, 40, 24)
+    degs[7] = 1000
+    c = _arena(rng, heads, hidden, degs)
+    n = c["n"]
+    args = _card_args(c, dtype, cuda)
+    dst = _t(c, "dst", torch.int64, cuda)
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(n, hidden)).astype(np.float32)).to(cuda)
+    want = ag.aggregate_plain(*args, dst, heads=heads)
+    live = torch.from_numpy((c["mask"] > 0) & (c["dst"] != n - 1)).to(cuda)
+    e_total = c["dst"].shape[0]
+    tried = 0
+    for hpw in sorted({1, 2, heads}):
+        for split in (1, 2, 4):
+            try:
+                plans = [ag.aggregate_plan(
+                    n, e_total, hidden, heads, args[2].element_size(),
+                    args[2].data_ptr(), heads_per_warp=hpw, split=split,
+                    backward=b) for b in (False, True)]
+            except ValueError:  # a layout these heads cannot take
+                continue
+            what = f"hpw {hpw} split {split}"
+            fwd = ag.aggregate_cuda(*args, heads=heads, plan=plans[0])
+            bwd = ag.aggregate_bwd_cuda(*args, g, fwd[1], fwd[2],
+                                        heads=heads, plan=plans[1])
+            torch.cuda.synchronize()
+            for name, a, b in zip(("out", "max", "denom"), fwd, want):
+                a, b = a[:-1], b[:-1]
+                if name == "max":
+                    dead = b <= 0.5 * NEG
+                    assert (a[dead] == NEG).all(), what
+                    a, b = a[~dead], b[~dead]
+                _near(a, b, tol, f"{what} {name}")
+            ref = ag.aggregate_bwd_plain(*args, dst, g, fwd[1], fwd[2],
+                                         heads=heads)
+            for name, a, b in (("dl", bwd[0], ref[0]),
+                               ("dv", bwd[1].float(), ref[1].float())):
+                assert not a[~live].any(), f"{what} {name}: dead rows"
+                _near(a[live], b[live], tol, f"{what} {name}")
+            for offset in (2, 4):
+                if offset % args[2].element_size():
+                    continue  # an f32 v 2 bytes off takes no word
+                v2, g2 = _at_offset(args[2], offset), _at_offset(g, offset)
+                moved = [ag.aggregate_plan(
+                    n, e_total, hidden, heads, v2.element_size(),
+                    v2.data_ptr(), heads_per_warp=hpw, split=split,
+                    backward=b) for b in (False, True)]
+                assert moved[0].word < plans[0].word or plans[0].word <= 4
+                a2 = (args[0], args[1], v2, args[3])
+                fwd2 = ag.aggregate_cuda(*a2, heads=heads, plan=moved[0])
+                bwd2 = ag.aggregate_bwd_cuda(*a2, g2, fwd[1], fwd[2],
+                                             heads=heads, plan=moved[1])
+                torch.cuda.synchronize()
+                for a, b in zip(fwd2 + bwd2, fwd + bwd):
+                    assert torch.equal(a, b), f"{what} at offset {offset}"
+            tried += 1
+    assert tried >= 2

@@ -104,11 +104,12 @@ def test_every_wrapper_check_takes_the_width(monkeypatch, hidden, heads):
         q, k, v, scale, mask, row_ptr, heads=heads,
         extra=tuple((name, x, shape) for name, x, _, shape in stats)) == (
             n, hidden, e_total)
-    # kernels 1 and 2
-    assert ag._check_inputs(scale, scale, v, row_ptr, heads=heads) == (
+    # kernels 1 and 2, whose logits and scale are [E, heads]
+    scale_e = scale.t().contiguous()
+    assert ag._check_inputs(scale_e, scale_e, v, row_ptr, heads=heads) == (
         n, hidden, e_total)
     assert ag._check_inputs(
-        scale, scale, v, row_ptr, heads=heads,
+        scale_e, scale_e, v, row_ptr, heads=heads,
         extra=(("g", g, lambda n_, h_: (n_, h_)),
                ("max", st, lambda n_, h_: (n_, heads)))) == (
             n, hidden, e_total)
@@ -232,7 +233,9 @@ def _run(kernel, c):
     k_e = c["kv"][:, :c["q"].shape[1]].contiguous()
     v_e = c["kv"][:, c["q"].shape[1]:].contiguous()
     att = (c["q"], k_e, v_e, c["scale"], c["mask"])
-    agg = (c["logits"], c["scale"], v_e, c["row_ptr"])
+    # kernels 1 and 2 take [E, heads] logits and scale
+    agg = (c["logits"].t().contiguous(), c["scale"].t().contiguous(), v_e,
+           c["row_ptr"])
     dead = ~c["live"]
     if kernel == "attn_eproj_fwd":
         return (ep.attention_eproj_cuda(*fwd, c["row_ptr"], c["dst"], heads=h),
@@ -275,7 +278,7 @@ def _run(kernel, c):
     got = ag.aggregate_bwd_cuda(*args, heads=h)
     want = ag.aggregate_bwd_plain(*agg[:4], c["dst"], c["g"], mx, den,
                                   heads=h)
-    return ((got[0].t(), got[1]), (want[0].t(), want[1]), {0: dead, 1: dead})
+    return got, want, {0: dead, 1: dead}
 
 
 KERNELS = ("softmax_aggregate_fwd", "softmax_aggregate_bwd", "attn_fwd",
