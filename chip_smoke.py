@@ -68,6 +68,30 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      forward, kernels 5 and 6 never. Then `make_train_step` on the span
      config for one epoch, f32 and bf16: kernels 8 and 9 2·layers times
      per step, nothing else.
+     Then the slice's stages on the trained artifacts. evaluate:
+     `gnnep_tpu_torch.cli.evaluate --no-plots` on the trained f32 ensemble
+     (test and calib splits, batches of 16) on the card in f32 and bf16 and
+     on the CPU in f32: the card's f32 metrics.json equals the CPU's (every
+     finite float within rtol 1e-3 / atol 1e-4, NaN where the CPU has
+     NaN), kernel 5 runs 2·layers times per member per batch and nothing
+     else, and each member's forwards after its first batch replay its one
+     capture; the same on the kv+e rung's ensemble with kernel 3.
+     featurize: `cli.fetch --from-json examples/custom_materials.json` with
+     the fetcher's defaults (crystalnn, so the 7.5 Å cutoff without
+     pymatgen; MgO gives 1,424 bonds and 252,048 line-graph edges, up to
+     178 edges into one target), each structure's host seconds and
+     longest segments; then `cli.predict --mode custom` on those
+     structures through the 5-member flagship ensemble, one a batch, on the
+     card in f32 and bf16 and on the CPU: kernel 5 2·layers times per
+     member per batch, the card's f32 means equal the CPU's. knn:
+     `cli.train` with KNN density weighting refreshed after every epoch and
+     `--save-embeddings` (1 member, 3 epochs, f32): finite losses, replayed
+     steps, kernels 6 and 7 2·layers times per step, each snapshot's
+     weights mean 1, the embedding files [n_split, hidden]; on the last
+     snapshot the device kNN on the card equals the host backend's
+     (distances and weights within 1e-4, neighbour sets equal but at
+     distance ties), and a captured step on batches carrying those weights
+     equals the eager step.
   6. check: one eager train step on the card against the CPU plain step
      from the same parameters and batch, dropout and jitter off, on each
      rung (span included), and on the default rung at hidden 512 / 4 heads
@@ -91,7 +115,8 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      floor),
      and kernel 7's identity order beside `torch.segment_reduce`. In each
      profiled captured run the profiler's calls of every kernel equal the
-     launch counts.
+     launch counts (each trace holds TRACE_MARGIN_S of idle time on either
+     side of its work, so that no kernel record falls outside its window).
   8. probes: the two dev probes as timing phases. The row gather (kernel
      11) bitwise on every case of the JAX probe and on a misaligned
      table, timed beside
@@ -148,11 +173,33 @@ PEAK_TF32 = 495e12
 # (hidden, heads) beyond the kernels' old limits (Fe = hidden > 256, head
 # width > 128), all of which the trainer takes: head widths 128, 256, 192
 WIDTHS = ((512, 4), (256, 1), (384, 2))
+# idle seconds inside each trace before and after its traced work: the
+# profiler drops a kernel record whose timestamp, converted from the
+# device's clock, falls outside the trace's window, and on the H100 that
+# conversion moved by milliseconds to tens of milliseconds between traces,
+# enough to drop the first or last kernels of a traced chunk
+# (`gnnep_tpu_torch/dev/trace_window_probe.py`)
+TRACE_MARGIN_S = 0.5
 
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
+
+
+@contextlib.contextmanager
+def traced():
+    """A torch.profiler trace of the card and the host whose window holds
+    TRACE_MARGIN_S of idle time on each side of the block's work; the block
+    synchronizes the card before it ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
 
 
 def median_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
@@ -835,7 +882,6 @@ def check_gather_backward(dev):
     """The bf16 kv gather's backward on the card is kernel 7 alone: its
     gradient comes out bf16 from one launch, the profiler sees no cast."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from gnnep_tpu_torch.ops.cuda import segment_sum as ss
     c = segsum_small_case(np.random.default_rng(SEED + 21), "mixed",
                           width=512, dtype=torch.bfloat16, device=dev)
@@ -847,8 +893,7 @@ def check_gather_backward(dev):
     out = ss.csr_gather_ordered(x, src, c["order"], c["starts"])
     torch.cuda.synchronize()
     before = ss.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         (dx,) = torch.autograd.grad(out, x, c["values"])
         torch.cuda.synchronize()
     kernels = [e.key for e in prof.key_averages()
@@ -1200,14 +1245,12 @@ def check_attn_bwd_one_kernel(c):
     launch of `attn_bwd_kernel`, which also zeroes the dummy row's dk and
     dv rows, and nothing else."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from gnnep_tpu_torch.ops.cuda import attention as at
     args = rung_bwd_inputs("attn_bwd", c)
     at.attention_bwd_cuda(*args, heads=c["heads"])
     torch.cuda.synchronize()
     before = at.bwd_launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         at.attention_bwd_cuda(*args, heads=c["heads"])
         torch.cuda.synchronize()
     kernels = [e.key for e in prof.key_averages()
@@ -1311,14 +1354,12 @@ def check_agg_bwd_one_kernel(c):
     launch of `softmax_aggregate_bwd_kernel`, which also zeroes the dummy
     row's dl_t and dv, and nothing else."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from gnnep_tpu_torch.ops.cuda import aggregate as ag
     args = rung_bwd_inputs("softmax_aggregate_bwd", c)
     ag.aggregate_bwd_cuda(*args, heads=c["heads"])
     torch.cuda.synchronize()
     before = ag.bwd_launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         ag.aggregate_bwd_cuda(*args, heads=c["heads"])
         torch.cuda.synchronize()
     kernels = [e.key for e in prof.key_averages()
@@ -1995,6 +2036,382 @@ def phase_train_rung(root: Path, data: Path, layers: int, rung: str):
                 seconds=secs, replays=replays)
 
 
+# --------------------------------------------------------------- phase 6
+# evaluate: the trained ensemble's test split (and its calib split, for the
+# sharpness curves) in batches of EVAL_BATCH graphs
+EVAL_BATCH = 16
+# the serving tolerance of a card result against the CPU's
+SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4
+EXAMPLES = Path(__file__).resolve().parent / "examples" / "custom_materials.json"
+
+
+def eval_argv(data: Path, ens: Path, out: Path, dtype: str,
+              device: str) -> list:
+    """The CLI request of an evaluation run: the test split of the splits
+    the trainer drew (its seed and fractions, TRAIN_MEMBERS folds)."""
+    return ["--ensemble-dir", str(ens), "--data-dir", str(data),
+            "--output-dir", str(out), "--no-plots",
+            "--batch-size", str(EVAL_BATCH), "--seed", str(SEED),
+            "--ensemble-size", str(TRAIN_MEMBERS), "--compute-dtype", dtype,
+            "--device", device]
+
+
+def close_to(got, want, path: str = "metrics") -> float:
+    """Hold `got` to `want` (nested dicts and lists of the same keys and
+    lengths): every finite float within SERVE_RTOL / SERVE_ATOL, NaN where
+    `want` has NaN, strings and None equal. Returns the largest absolute
+    difference of a finite float."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            raise AssertionError(f"{path}: keys {sorted(got)} vs "
+                                 f"{sorted(want)}")
+        return max([close_to(got[k], want[k], f"{path}.{k}") for k in want],
+                   default=0.0)
+    if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: lengths {len(got)}, {len(want)}")
+        return max([close_to(g, w, f"{path}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))], default=0.0)
+    if want is None or isinstance(want, str):
+        if got != want:
+            raise AssertionError(f"{path}: {got!r} vs {want!r}")
+        return 0.0
+    g, w = float(got), float(want)
+    if not np.isfinite(w):
+        if not (np.isnan(w) and np.isnan(g)) and g != w:
+            raise AssertionError(f"{path}: {g} where the CPU has {w}")
+        return 0.0
+    if not abs(g - w) <= SERVE_ATOL + SERVE_RTOL * abs(w):
+        raise AssertionError(f"{path}: {g} vs the CPU's {w}")
+    return abs(g - w)
+
+
+def phase_evaluate(root: Path, data: Path, ens: Path, layers: int,
+                   members: int, kernel: str, rung: str):
+    """`cli.evaluate --no-plots` on the ensemble in `ens`, on the card in
+    f32 and bf16 and on the CPU in f32: the card's f32 metrics.json equals
+    the CPU's (`close_to`); on the card `kernel` runs 2·layers times per
+    member per batch of the test and calib splits and no other kernel runs,
+    and each member's forwards after its first batch are replays of its one
+    capture (one `Forward` serves both splits, packed to one budget).
+    Returns {dtype: launches} of the card runs and their wall seconds."""
+    import torch
+    from gnnep_tpu_torch.cli import evaluate as cli
+    from gnnep_tpu_torch.evaluate import runner
+    sizes = []
+    orig = runner._collect_members
+
+    def recording(forward, runs, batches):
+        sizes.append(len(batches))
+        return orig(forward, runs, batches)
+
+    metrics, launches, seconds = {}, {}, {}
+    runner._collect_members = recording
+    try:
+        for dtype, device in (("float32", "cuda"), ("bfloat16", "cuda"),
+                              ("float32", "cpu")):
+            sizes.clear()
+            out = root / f"eval_{rung}_{dtype}_{device}"
+            t0 = time.perf_counter()
+            with open(root / f"eval_{rung}_{dtype}_{device}.txt", "w") as log, \
+                    contextlib.redirect_stdout(log):
+                reset_counts()
+                cli.main(eval_argv(data, ens, out, dtype, device))
+                counts, replays = read_counts(), read_replays()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            res = json.loads((out / "test" / "metrics.json").read_text())
+            if not np.isfinite([res["overall"]["rmse"],
+                                res["overall"]["mae"]]).all():
+                raise AssertionError(f"evaluate {rung} {dtype} {device}: "
+                                     f"{res['overall']}")
+            n_batches = sum(sizes)
+            grew = counts.pop(kernel)
+            want = 2 * layers * members * n_batches if device == "cuda" else 0
+            want_replays = {"train": 0, "eval": members * (n_batches - 1)
+                            if device == "cuda" else 0}
+            if grew != want or any(counts.values()):
+                raise AssertionError(
+                    f"evaluate {rung} {dtype} {device}: {kernel} launched "
+                    f"{grew} times, expected 2 convs x {layers} layers x "
+                    f"{members} members x {n_batches} batches = {want}; "
+                    f"others {counts}")
+            if replays != want_replays:
+                raise AssertionError(f"evaluate {rung} {dtype} {device}: "
+                                     f"{replays} replays, expected "
+                                     f"{want_replays}")
+            if device == "cuda":
+                launches[dtype], seconds[dtype] = grew, secs
+            metrics[(dtype, device)] = res
+            say("evaluate", rung=rung, dtype=dtype, device=device,
+                members=members, test_batches=sizes[0],
+                calib_batches=sizes[1], kernel=kernel, kernel_launches=grew,
+                forward_replays=replays["eval"], cli_seconds=f"{secs:.2f}",
+                rmse=f"{res['overall']['rmse']:.4f}",
+                conformal_coverage=res["overall"]["conformal_coverage"])
+    finally:
+        runner._collect_members = orig
+    err = close_to(metrics[("float32", "cuda")], metrics[("float32", "cpu")])
+    say("evaluate", rung=rung, check="metrics_json_card_f32_vs_cpu",
+        rtol=SERVE_RTOL, atol=SERVE_ATOL, max_abs_err=f"{err:.3e}")
+    return dict(launches=launches, cli_seconds=seconds)
+
+
+def phase_featurize(root: Path, ens: Path, layers: int):
+    """`cli.fetch --from-json examples/custom_materials.json` with the
+    fetcher's defaults (crystalnn; without pymatgen the 7.5 Å cutoff, and
+    the bundled mat2vec table), each structure's host seconds and its
+    graph's sizes and longest segments (per conv: the most edges into one
+    target, kernel 5's row, and out of one source); then `cli.predict
+    --mode custom` on those structures through the flagship ensemble in
+    `ens`, one structure a batch, on the card in f32 and bf16 and on the
+    CPU in f32: kernel 5 2·layers times per member per batch, every
+    member's batches after its first replays, the card's f32 means equal
+    the CPU's. Returns the fetch's and the card runs' numbers."""
+    import torch
+    from gnnep_tpu_torch.cli import fetch
+    from gnnep_tpu_torch.cli import predict as cli_predict
+    from gnnep_tpu_torch.data.store import GraphStore
+    out = root / "fetched"
+    host = {}
+    orig = fetch.build_graph
+
+    def timed(structure, **kw):
+        t0 = time.perf_counter()
+        sample = orig(structure, **kw)
+        host[kw["material_id"]] = time.perf_counter() - t0
+        return sample
+
+    fetch.build_graph = timed
+    try:
+        t0 = time.perf_counter()
+        with open(root / "fetch.txt", "w") as log, \
+                contextlib.redirect_stdout(log):
+            fetch.main(["--out-dir", str(out), "--from-json", str(EXAMPLES)])
+        fetch_secs = time.perf_counter() - t0
+    finally:
+        fetch.build_graph = orig
+    store = GraphStore.load_dir(out, require_target=False, use_cache=False)
+    graphs = {}
+    for g, mid in enumerate(store.material_ids):
+        s = store.sample(g)
+        longest = {}
+        for conv, src, dst, rows in (("atom", s.edge_src, s.edge_dst,
+                                      s.n_nodes),
+                                     ("lg", s.lg_src, s.lg_dst, s.n_edges)):
+            longest[f"{conv}_dst"] = int(np.bincount(dst, minlength=rows)
+                                         .max())
+            longest[f"{conv}_src"] = int(np.bincount(src, minlength=rows)
+                                         .max())
+        graphs[mid] = dict(atoms=s.n_nodes, bonds=s.n_edges,
+                           lg_edges=s.n_lg_edges, node_dim=s.node_feats
+                           .shape[1], host_seconds=host[mid], **longest)
+        say("featurize", material=mid, atoms=s.n_nodes, bonds=s.n_edges, lg_edges=s.n_lg_edges,
+            **{f"longest_{k}": v for k, v in longest.items()},
+            host_seconds=f"{host[mid]:.3f}")
+    if (store.n_graphs != 3 or store.node_dim != 206
+            or store.edge_dim != 36 or store.angle_dim != 11):
+        raise AssertionError(f"fetched {store.n_graphs} graphs of widths "
+                             f"{store.node_dim}/{store.edge_dim}/"
+                             f"{store.angle_dim}")
+    mat2vec = Path(fetch._default_mat2vec())
+    mu, launches, seconds = {}, {}, {}
+    for dtype, device in (("float32", "cuda"), ("bfloat16", "cuda"),
+                          ("float32", "cpu")):
+        pred = root / f"pred_custom_{dtype}_{device}.json"
+        t0 = time.perf_counter()
+        with open(root / f"cli_custom_{dtype}_{device}.txt", "w") as log, \
+                contextlib.redirect_stdout(log):
+            reset_counts()
+            cli_predict.main(["--mode", "custom", "--input-file",
+                              str(EXAMPLES), "--ensemble-dir", str(ens),
+                              "--mat2vec-path", str(mat2vec),
+                              "--batch-size", "1", "--compute-dtype", dtype,
+                              "--device", device, "--output-json", str(pred)])
+            counts, replays = read_counts(), read_replays()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        preds = json.loads(pred.read_text())["predictions"]
+        m = np.asarray([p["mu"] for p in preds], np.float64)
+        sigma = np.asarray([p["sigma"] for p in preds], np.float64)
+        if m.shape != (3, 2) or not (np.isfinite(m).all()
+                                     and np.isfinite(sigma).all()
+                                     and (sigma > 0).all()):
+            raise AssertionError(f"custom {dtype} {device}: mu {m}, "
+                                 f"sigma {sigma}")
+        on_card = device == "cuda"
+        grew = counts.pop("attn_eproj_fwd")
+        want = 2 * layers * MEMBERS * 3 if on_card else 0
+        want_replays = {"train": 0, "eval": MEMBERS * 2 if on_card else 0}
+        if grew != want or any(counts.values()) or replays != want_replays:
+            raise AssertionError(
+                f"custom {dtype} {device}: attn_eproj_fwd launched {grew} "
+                f"times (expected 2 convs x {layers} layers x {MEMBERS} "
+                f"members x 3 batches = {want}), others {counts}, replays "
+                f"{replays} (expected {want_replays})")
+        mu[(dtype, device)] = m
+        if on_card:
+            launches[dtype], seconds[dtype] = grew, secs
+        say("featurize", serve="custom", dtype=dtype, device=device,
+            members=MEMBERS, batches=3, kernel_launches=grew,
+            forward_replays=replays["eval"], cli_seconds=f"{secs:.2f}",
+            mu=json.dumps(np.round(m, 3).tolist()))
+    got, want = mu[("float32", "cuda")], mu[("float32", "cpu")]
+    if not np.allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+        raise AssertionError(f"custom structures: the card's f32 mu {got} "
+                             f"differ from the CPU's {want}")
+    say("featurize", check="custom_mu_card_f32_vs_cpu", rtol=SERVE_RTOL,
+        atol=SERVE_ATOL, max_abs_err=f"{np.abs(got - want).max():.3e}")
+    return dict(fetch_seconds=fetch_secs, graphs=graphs, launches=launches,
+                cli_seconds=seconds)
+
+
+# the trainer's default clip, [0.2, 1.0], takes every weight of the
+# fixture to one bound (the local label variance is in GPa², so
+# 1 + β·var is in the thousands): the run widens it, so that the weights
+# carry both the density and the label-variance terms
+KNN_FLAGS = ["--enable-density-weighting", "--weight-warmup-epochs", "0",
+             "--knn-refresh", "1", "--save-embeddings",
+             "--knn-weight-min", "1e-4", "--knn-weight-max", "1e4"]
+
+
+def phase_knn(root: Path, data: Path, layers: int, setup, train_batches,
+              dev):
+    """`cli.train` with KNN density weighting (one member, 3 epochs, f32,
+    weights refreshed after every epoch from the first) and
+    `--save-embeddings`: every loss finite, every step after the warm-up a
+    replay of the captured step, kernels 6 and 7 2·layers times per step
+    and kernel 5 2·layers times per forward (train, eval and embedding),
+    each snapshot's weights mean 1 and within the clip ratio, the four
+    embedding files [n_split, hidden]. On the last snapshot's embeddings
+    the device kNN on the card equals the host's (distances and weights
+    within 1e-4, neighbour sets equal but where distances tie), and one
+    captured step on batches carrying those weights equals the eager step
+    (`phase_check_captured`)."""
+    import torch
+    from gnnep_tpu_torch.cli import train as cli_train
+    from gnnep_tpu_torch.train import knn_weights as kw
+    from gnnep_tpu_torch.train import member
+    from gnnep_tpu_torch.train.ensemble import prepare
+    out = root / "trained_knn"
+    argv = train_argv(data, out, "float32", 1, 3) + KNN_FLAGS
+    cfg = cli_train.config_from_args(cli_train.build_parser()
+                                     .parse_args(argv))
+    snaps, weights, snap_secs = [], [], []
+    orig_snap, orig_weights = kw.snapshot_embeddings, member.compute_knn_weights
+
+    def recording_snapshot(*a, **k):
+        snaps.append(orig_snap(*a, **k))
+        return snaps[-1]
+
+    def timed_weights(*a, **k):
+        t0 = time.perf_counter()
+        weights.append(orig_weights(*a, **k))
+        snap_secs.append(time.perf_counter() - t0)
+        return weights[-1]
+
+    kw.snapshot_embeddings = recording_snapshot
+    member.compute_knn_weights = timed_weights
+    t0 = time.perf_counter()
+    try:
+        with open(root / "train_knn.txt", "w") as log, \
+                contextlib.redirect_stdout(log):
+            summary, counts, losses, forwards, replays = run_counted(
+                lambda: cli_train.main(argv))
+    finally:
+        kw.snapshot_embeddings = orig_snap
+        member.compute_knn_weights = orig_weights
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = summary["optimizer_steps"]
+    loss = torch.cat(losses).cpu().numpy() if losses else np.zeros(0)
+    if steps <= 0 or len(loss) != steps or not np.isfinite(loss).all():
+        raise AssertionError(f"knn: {steps} optimizer steps, {len(loss)} "
+                             f"losses, finite: {np.isfinite(loss).all()}")
+    check_replays("knn", replays, steps, 1)
+    want = {"attn_eproj_bwd": 2 * layers * steps,
+            "csr_segment_sum": 2 * layers * steps,
+            "attn_eproj_fwd": 2 * layers * (forwards["train"]
+                                            + forwards["eval"])}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"knn: {name} launched {n} times, expected "
+                                 f"{want.get(name, 0)} ({steps} steps, "
+                                 f"forwards {forwards})")
+    if len(weights) != 3:
+        raise AssertionError(f"knn: {len(weights)} weight snapshots in 3 "
+                             "epochs with --knn-refresh 1")
+    ratio = cfg.knn_weight_max / cfg.knn_weight_min
+    for w in weights:
+        vals = np.asarray(list(w.values()))
+        # clipped to [knn_weight_min, knn_weight_max], then divided by their
+        # mean: the clip survives as the ratio
+        if (abs(vals.mean() - 1.0) > 1e-5 or not (vals > 0).all()
+                or vals.max() / vals.min() > ratio * (1 + 1e-6)):
+            raise AssertionError(f"knn weights: mean {vals.mean()}, min "
+                                 f"{vals.min()}, max {vals.max()}")
+    split_setup = prepare(cfg)
+    for split in ("train", "val", "calib", "test"):
+        z = np.load(out / f"embeddings_{split}.npz")["z"]
+        n = len(getattr(split_setup, f"{split}_idx"))
+        if z.shape != (n, cfg.hidden) or not np.isfinite(z).all():
+            raise AssertionError(f"embeddings_{split}: {z.shape}, expected "
+                                 f"({n}, {cfg.hidden})")
+    # the last snapshot: device kNN on the card against the host backend
+    Z, Y, I = snaps[-1]
+    Zs = kw.zscore(Z)
+    k_eff = max(1, min(cfg.knn_k, Zs.shape[0] - 1))
+    dd, di = kw.knn_neighbors(Zs, k_eff, backend="device", device=dev)
+    hd, hi = kw.knn_neighbors(Zs, k_eff, backend="host")
+    if not np.allclose(dd, hd, rtol=1e-4, atol=1e-4):
+        raise AssertionError("knn: device distances differ from the host's "
+                             f"by {np.abs(dd - hd).max():.3e}")
+    full = np.linalg.norm(Zs[:, None].astype(np.float64) - Zs[None], axis=-1)
+    np.fill_diagonal(full, np.inf)
+    full = np.sort(full, axis=1)
+    ties = np.abs(full[:, k_eff] - full[:, k_eff - 1]) <= 1e-4
+    differ = np.array([set(a) != set(b) for a, b in zip(di, hi)])
+    if (differ & ~ties).any():
+        raise AssertionError(f"knn: {int((differ & ~ties).sum())} rows "
+                             "without a distance tie have other neighbours "
+                             "on the card")
+    knn_kw = dict(k=cfg.knn_k, eps=cfg.knn_eps, alpha=cfg.knn_alpha,
+                  beta=cfg.knn_beta, clip_min=cfg.knn_weight_min,
+                  clip_max=cfg.knn_weight_max)
+    wd = kw.density_weights(Z, Y, I, backend="device", device=dev, **knn_kw)
+    wh = kw.density_weights(Z, Y, I, backend="host", **knn_kw)
+    w_err = max(abs(wd[i] - wh[i]) for i in wh)
+    if wd.keys() != wh.keys() or w_err > 1e-4:
+        raise AssertionError(f"knn: device weights differ from the host's "
+                             f"by {w_err:.3e}")
+    say("knn", dtype="float32", members=1, epochs=3, optimizer_steps=steps,
+        step_replays=replays["train"], forward_replays=replays["eval"],
+        eval_forwards=forwards["eval"], kernel_launches=json.dumps(counts),
+        snapshots=len(weights), snapshot_graphs=Zs.shape[0],
+        snapshot_seconds=json.dumps([round(s, 3) for s in snap_secs]),
+        weight_min=f"{min(weights[-1].values()):.4f}",
+        weight_max=f"{max(weights[-1].values()):.4f}",
+        loss_sum_first=f"{loss[0]:.4f}", loss_sum_last=f"{loss[-1]:.4f}",
+        cli_seconds=f"{secs:.2f}")
+    say("knn", check="device_vs_host", k=k_eff, rows=Zs.shape[0],
+        max_abs_err_dist=f"{np.abs(dd - hd).max():.3e}",
+        rows_other_neighbours=int(differ.sum()), tie_rows=int(ties.sum()),
+        max_abs_err_weight=f"{w_err:.3e}")
+    # the last snapshot's weights on the trainer's batches, through the
+    # captured step's buffers
+    weight_arr = np.ones(setup.store.n_graphs, np.float32)
+    for g, w in weights[-1].items():
+        weight_arr[g] = w
+    weighted = member._graft_weights(train_batches[:3], weight_arr)
+    real = np.asarray(weighted[2].graph_mask) > 0
+    if np.ptp(np.asarray(weighted[2].weight)[real]) <= 0:
+        raise AssertionError("knn: the checked batch's weights are uniform")
+    phase_check_captured(setup, weighted, dev, "eproj", "float32",
+                         what="captured_step_vs_eager_knn_weights")
+    return dict(counts=counts, steps=steps, seconds=secs,
+                snapshot_seconds=snap_secs, snapshot_graphs=Zs.shape[0])
+
+
 def span_config(store_or_none, batches, **kw):
     """The flagship config on the span rung (`conv_impl='fused'`,
     `attn_span=True`) with the span bounds `measure_span64` gives over
@@ -2324,7 +2741,8 @@ def rel_gaps(a, b, before_a, before_b, metrics_a, metrics_b) -> dict:
                    [p.detach().cpu() - q for p, q in zip(b.params, before_b)]))
 
 
-def phase_check_captured(setup, batches, dev, rung: str, dtype: str):
+def phase_check_captured(setup, batches, dev, rung: str, dtype: str,
+                         what: str = "captured_step_vs_eager"):
     """The card's captured step against its eager step, on `rung` in
     `dtype`, dropout and jitter off: the captured step takes batch 0 as its
     eager warm-up and batch 1 as its capture and first replay; then its
@@ -2409,8 +2827,7 @@ def phase_check_captured(setup, batches, dev, rung: str, dtype: str):
         verdict = dict(limit="2x_eager_spread", adam_count=1,
                        loss_sum=f"{metrics['card'][0]:.6f}")
     card.close()
-    say("check", rung=rung, dtype=dtype, what="captured_step_vs_eager",
-        **verdict,
+    say("check", rung=rung, dtype=dtype, what=what, **verdict,
         **{f"captured_rel_{n}": f"{v:.3e}" for n, v in got.items()},
         **{f"eager_rel_{n}": f"{v:.3e}" for n, v in spread.items()})
     if f32:
@@ -3188,12 +3605,10 @@ def profile_run(run_all, label: str, dtype: str, n_calls: int,
     profiler's calls of its kernel (`PROFILED`). Returns (busy share,
     device ms per call)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     run_all()
     torch.cuda.synchronize()
     reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         t0 = time.perf_counter()
         run_all()
         torch.cuda.synchronize()
@@ -3270,6 +3685,15 @@ def main() -> int:
                               tag=f"_{rung}")
             for rung, spec in RUNGS.items()}
         runs = phase_train(root, data, cfg.layers)
+        evaluated = {
+            "eproj": phase_evaluate(root, data, root / "trained_float32",
+                                    cfg.layers, TRAIN_MEMBERS,
+                                    "attn_eproj_fwd", "eproj"),
+            "kv+e": phase_evaluate(root, data, rung_ens["kv+e"], cfg.layers,
+                                   RUNG_MEMBERS, RUNGS["kv+e"]["fwd"],
+                                   "kv+e")}
+        featurized = phase_featurize(root, ens, cfg.layers)
+        knn = phase_knn(root, data, cfg.layers, setup, train_batches, dev)
         rung_train = {rung: phase_train_rung(root, data, cfg.layers, rung)
                       for rung in RUNGS}
         span_cfg, span_forwards = phase_span_forward(ens, batches, dev)
@@ -3323,11 +3747,21 @@ def main() -> int:
                train["bfloat16"]["csr_segment_sum"], "train"),
     ]
     kernels[0]["launches_train"] = train["float32"]["attn_eproj_fwd"]
+    # the f32 runs of the slice's paths: evaluate (test and calib splits of
+    # the trained ensemble), custom structures served, KNN-weighted training
+    kernels[0]["launches_evaluate"] = evaluated["eproj"]["launches"]["float32"]
+    kernels[0]["launches_custom"] = featurized["launches"]["float32"]
+    kernels[0]["launches_knn"] = knn["counts"]["attn_eproj_fwd"]
+    for rec in kernels[1:3]:
+        rec["launches_knn"] = knn["counts"][rec["name"]]
     for rung, spec in RUNGS.items():
         fwd = record(spec["fwd"], rung_cases[spec["fwd"]],
                      rung_serve[rung]["float32"],
                      rung_serve[rung]["bfloat16"], f"serve_{rung}")
         fwd["launches_train"] = rung_train[rung]["counts"][spec["fwd"]]
+        if rung in evaluated:
+            fwd["launches_evaluate"] = \
+                evaluated[rung]["launches"]["float32"]
         kernels += [fwd, record(spec["bwd"], rung_cases[spec["bwd"]],
                                 rung_train[rung]["counts"][spec["bwd"]], None,
                                 f"train_{rung}")]
@@ -3355,6 +3789,8 @@ def main() -> int:
                    "step_times": step_times[rung]}
             for rung, r in rung_train.items()},
         "forward": forward_times,
+        "evaluate": evaluated, "featurize": featurized,
+        "knn": {k: v for k, v in knn.items() if k != "counts"},
         "span": {"edge_span64": span_cfg.edge_span64,
                  "lg_span64": span_cfg.lg_span64,
                  "serve_launches_attn_eproj_fwd": span_serve,

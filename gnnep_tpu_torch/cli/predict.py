@@ -35,8 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Custom materials JSON (mode=custom)")
     p.add_argument("--mat2vec-path", default=None,
                    help="Element embedding JSON/NPZ for custom featurization "
-                        "(accepted for compatibility; featurization of "
-                        "structures is not ported yet)")
+                        "of structure entries (without it the checkpoint's "
+                        "embedding columns are zero)")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--min-logvar-floor", type=float, default=MIN_LOGVAR_FLOOR)
@@ -88,7 +88,8 @@ def select_graphs(args: argparse.Namespace, ensemble: Ensemble):
     else:
         if not args.input_file:
             raise SystemExit("--input-file is required when mode=custom.")
-        store = load_custom_samples(args.input_file, ensemble)
+        store = load_custom_samples(args.input_file, ensemble,
+                                    args.mat2vec_path)
         indices = list(range(store.n_graphs))
     return store, indices
 

@@ -354,3 +354,41 @@ def write_index(directory: str | Path, store: GraphStore) -> None:
             "has_target": bool(np.isfinite(store.y[g]).all()),
         })
     Path(directory, "index.json").write_text(json.dumps(rows, indent=2))
+
+
+def write_index_streaming(directory: str | Path) -> int:
+    """Build index.json by streaming per-file metadata, never materializing
+    the dataset.
+
+    The fetch CLI used `GraphStore.load_dir` purely to write the manifest,
+    which holds every sample in memory at once — on a corpus with dense
+    graphs (7.5 A cutoff fallback on metals) that peaked at >100 GB for a
+    42 GB directory. Here only the small members of each .npz (meta, y,
+    node_feats, edge_src, lg_src) are decompressed; the heavy lg_attr
+    arrays are never touched. Returns the number of rows written.
+    """
+    directory = Path(directory)
+    files = sorted(p for p in directory.glob("*.npz")
+                   if not p.name.startswith("_"))
+    rows = []
+    for p in files:
+        try:
+            with np.load(p, allow_pickle=False) as data:
+                meta = json.loads(str(data["meta"]))
+                y = data["y"]
+                n = int(data["node_feats"].shape[0])
+                e = int(data["edge_src"].shape[0])
+                l = int(data["lg_src"].shape[0])
+        except Exception as exc:
+            print(f"[store] skipping unreadable {p.name}: {exc}")
+            continue
+        rows.append({
+            "material_id": meta["material_id"],
+            "formula": meta["formula"],
+            "reduced_formula": meta["reduced_formula"] or meta["formula"],
+            "prototype": meta["prototype"] or None,
+            "n_atoms": n, "n_edges": e, "n_lg_edges": l,
+            "has_target": bool(y.size > 0 and np.isfinite(y).all()),
+        })
+    Path(directory, "index.json").write_text(json.dumps(rows, indent=2))
+    return len(rows)

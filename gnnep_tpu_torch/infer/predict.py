@@ -2,13 +2,12 @@
 
 Counterpart of `gnnep_tpu.infer.predict`: checkpoints alone rebuild the
 architecture; `random` samples cached graphs, `materials` selects by MP id,
-and `custom` runs the dataset-free path on precomputed raw graph arrays.
-Uncertainty is the log-normal linear-space σ with a 90 % Gaussian CI clipped
-at zero.
+and `custom` runs the dataset-free path on pymatgen structure dicts
+(featurized on the fly) or precomputed raw graph arrays. Uncertainty is the
+log-normal linear-space σ with a 90 % Gaussian CI clipped at zero.
 
-Not yet ported: custom entries carrying a pymatgen `structure` (on-the-fly
-featurization, the featurization slice) and `giant_shards > 0` (the
-giant-graph slice); both raise `NotImplementedError`.
+Not yet ported: `giant_shards > 0` (the giant-graph slice) raises
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -21,8 +20,10 @@ import numpy as np
 import torch
 
 from ..data.batching import BatchBudget, epoch_batches, verify_win64
-from ..data.featurize import GraphSample
+from ..data.featurize import (BasisConfig, GraphSample, build_graph,
+                               load_mat2vec)
 from ..data.store import GraphStore
+from ..data.structure import Structure
 from ..data.transforms import FeatureScaler, LogTransformer
 from ..models.alignn import Alignn
 from ..train.artifacts import load_member, load_scaler_state, member_paths
@@ -32,6 +33,10 @@ from ..train.loop import (MIN_LOGVAR_FLOOR, cast_model, collect_predictions,
 from ..utils.device import resolve_device
 
 Z_SCORE_90 = 1.6449  # Φ⁻¹(0.95)
+# featurization defaults of a custom structure entry
+DEFAULT_NN_METHOD = "crystalnn"
+DEFAULT_CUTOFF = 5.0
+DEFAULT_FALLBACK_CUTOFF = 7.5
 
 
 class Ensemble:
@@ -70,6 +75,17 @@ class Ensemble:
             raise ValueError("scaler_state.npz lacks log-transform statistics.")
         return cls(members, scaler, transformer, meta, dev)
 
+    def runs(self, budget: BatchBudget, compute_dtype: str) -> List[Alignn]:
+        """Each member cast to `compute_dtype` and put under its config
+        reconciled to `budget`: the checkpoints embed training-time window
+        and span bounds, and served batches are packed to a fresh budget
+        (the JAX package's contract: a span member serves on the eproj
+        rung). Build them once per run, so that a captured forward keyed
+        by the member serves every batch of the run."""
+        return [with_config(cast_model(m, compute_dtype),
+                            reconcile_win64(m.cfg, budget))
+                for m in self.members]
+
     def predict(self, store: GraphStore, indices: Sequence[int],
                 batch_size: int = 32,
                 min_logvar_floor: float = MIN_LOGVAR_FLOOR,
@@ -84,18 +100,12 @@ class Ensemble:
                 "beyond the batch budget) waits for the giant-graph slice; "
                 "see ROADMAP.md")
         budget, batches = pack_batches(store, indices, batch_size)
+        runs = self.runs(budget, compute_dtype)
+        verify_win64(batches, runs[0].cfg)
         forward = make_forward(min_logvar_floor, compute_dtype)
         member_means, member_vars = [], []
         order = ys = None
-        for i, model in enumerate(self.members):
-            # checkpoint window and span bounds are training-time; these
-            # batches were packed to a fresh budget, and the member runs
-            # under the reconciled config (the JAX package's contract: a
-            # span member serves on the eproj rung)
-            cfg = reconcile_win64(model.cfg, budget)
-            if i == 0:
-                verify_win64(batches, cfg)
-            run = with_config(cast_model(model, compute_dtype), cfg)
+        for run in runs:
             mean_z, sigma_z, ys, order = collect_predictions(
                 forward, run, batches)
             member_means.append(mean_z)
@@ -153,32 +163,63 @@ def format_mixture_results(member_means, member_vars, order, ys, transformer,
     return results
 
 
-def load_custom_samples(input_file: str | Path,
-                        ensemble: Ensemble) -> GraphStore:
-    """Parse the custom-inference JSON (entries with precomputed raw graph
-    arrays) into a standardized GraphStore."""
+def load_custom_samples(input_file: str | Path, ensemble: Ensemble,
+                        mat2vec_path: Optional[str] = None,
+                        rbf_cutoff: float = 8.0,
+                        rbf_gamma: Optional[float] = None) -> GraphStore:
+    """Parse the custom-inference JSON into a (standardized) GraphStore:
+    entries with a pymatgen `structure` dict are featurized here, entries
+    with precomputed raw graph arrays are taken as they are.
+
+    The radial/angular basis *sizes* are inferred from the checkpoint's edge
+    and angle dimensions (edge_dim = rbf_n + 4, angle_dim = angle_n + 3), so
+    custom featurization always matches the trained architecture — the
+    reference hardcodes the default basis here (predict.py:403-407). Without
+    a mat2vec lookup the embedding columns the checkpoint expects are zero."""
     payload = json.loads(Path(input_file).read_text())
     entries = payload.get("materials", [])
     if not isinstance(entries, list) or not entries:
         raise ValueError("Input JSON must contain a non-empty 'materials' list.")
     cfg = ensemble.cfgs[0]
+    node_dim, edge_dim, angle_dim = cfg.node_dim, cfg.edge_dim, cfg.angle_dim
     g_scalar_dim = int(ensemble.dims.get("global_scalar_dim", 59))
+    basis = BasisConfig(rbf_n=max(edge_dim - 4, 1), rbf_cutoff=rbf_cutoff,
+                        rbf_gamma=rbf_gamma, angle_n=max(angle_dim - 3, 1))
+    m2v_dim = max(0, node_dim - 6)
+    lookup = load_mat2vec(mat2vec_path) if (m2v_dim and mat2vec_path) else {}
+    if m2v_dim and lookup:
+        got = len(next(iter(lookup.values())))
+        if got != m2v_dim:
+            raise ValueError(f"mat2vec dim {got} != checkpoint expectation {m2v_dim}")
+
     samples: List[GraphSample] = []
     for i, entry in enumerate(entries):
         mid = str(entry.get("material_id", f"custom_{i}"))
         y = _extract_target(entry, cfg.target_dim)
         if "structure" in entry:
-            raise NotImplementedError(
-                f"Material {mid}: featurizing a pymatgen structure on the fly "
-                "waits for the featurization slice (ROADMAP.md); pass "
-                "precomputed graph arrays ('x', 'edge_index', ...) instead")
-        if "x" in entry and "edge_index" in entry:
-            sample = _sample_from_raw(entry, mid, y, cfg.node_dim,
-                                      cfg.edge_dim, cfg.angle_dim,
-                                      g_scalar_dim)
+            structure = Structure.from_dict(entry["structure"])
+            sample = build_graph(
+                structure, material_id=mid,
+                formula=str(entry.get("formula", "")),
+                y=y, basis=basis,
+                nn_method=str(entry.get("nn_method", DEFAULT_NN_METHOD)),
+                cutoff=float(entry.get("cutoff", DEFAULT_CUTOFF)),
+                fallback_cutoff=float(entry.get("fallback_cutoff",
+                                                DEFAULT_FALLBACK_CUTOFF)),
+                mat2vec=lookup if m2v_dim else None,
+                guess_oxidation=bool(entry.get("guess_oxidation", True)))
+            if m2v_dim and not lookup:
+                pad = np.zeros((sample.n_nodes, m2v_dim), dtype=np.float32)
+                sample.node_feats = np.concatenate([sample.node_feats, pad], axis=1)
+        elif "x" in entry and "edge_index" in entry:
+            sample = _sample_from_raw(entry, mid, y, node_dim, edge_dim,
+                                      angle_dim, g_scalar_dim)
         else:
-            raise ValueError(f"Material {mid}: provide precomputed graph "
-                             "features ('x', 'edge_index', ...).")
+            raise ValueError(f"Material {mid}: provide either 'structure' or "
+                             "precomputed graph features ('x', 'edge_index', ...).")
+        if sample.node_feats.shape[1] != node_dim:
+            raise ValueError(f"Material {mid}: node feature dimension "
+                             f"{sample.node_feats.shape[1]} != expected {node_dim}")
         sg_override = entry.get("spacegroup_number")
         if sg_override is not None:
             sg = int(sg_override)

@@ -445,6 +445,14 @@ def alignn_apply(model: Alignn, batch: DeviceBatch, *, train: bool = False,
     return model.mean_head(shared), model.logvar_head(shared)
 
 
+def alignn_embed(model: Alignn, batch: DeviceBatch) -> torch.Tensor:
+    """Penultimate embedding [G, H] (reference train.py:576-577), the eval
+    trunk under the member's own config (its rung) and `inference_mode`;
+    used by KNN density weighting and `--save-embeddings`."""
+    with torch.inference_mode():
+        return _shared_trunk(model, batch)
+
+
 def alignn_activations(model: Alignn, batch: DeviceBatch
                        ) -> Dict[str, torch.Tensor]:
     """Eval forward recording every intermediate activation: {node_enc,

@@ -1,12 +1,14 @@
 """ctypes loader for the native host graph library (the port's own copy of
-`gnnep_tpu.native`, batch-assembly entry points only).
+`gnnep_tpu.native`: the featurizer's neighbor list and line graph, and the
+batch assembly).
 
 Compiles `csrc/host/graphops.cpp` (the JAX package's `native/graphops.cpp`,
 code unchanged) on first use, cached as
 `build/host/libgraphops-<hash>.so` inside this package, and exposes typed
 wrappers with transparent fallback to the pure-Python implementations when no
 C++ toolchain is available. Numerics are bit-identical to the Python path, so
-the port packs array-equal batches (tests/test_torch_data.py).
+the port packs array-equal batches (tests/test_torch_data.py) and
+featurizes array-equal graphs (tests/test_torch_featurize.py).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -29,6 +31,7 @@ _lib_failed = False
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -51,6 +54,15 @@ def _load() -> Optional[ctypes.CDLL]:
                 check=True, capture_output=True, timeout=300)
             tmp.rename(so)
         lib = ctypes.CDLL(str(so))
+        lib.build_line_graph.restype = ctypes.c_int64
+        lib.build_line_graph.argtypes = [
+            ctypes.c_int64, _i32p, _i32p, _i32p, _f64p, ctypes.c_int64,
+            _f64p, ctypes.c_int32, ctypes.c_double,
+            ctypes.c_int64, _i32p, _i32p, _f32p, _f64p]
+        lib.cutoff_neighbors.restype = ctypes.c_int64
+        lib.cutoff_neighbors.argtypes = [
+            ctypes.c_int64, _f64p, _f64p, ctypes.c_double, _i32p,
+            ctypes.c_int64, _i32p, _i32p, _i32p, _f64p, _f64p]
         lib.plan_dilution.restype = ctypes.c_int64
         lib.plan_dilution.argtypes = [
             ctypes.c_int64, _i64p, ctypes.c_int64, ctypes.c_int64,
@@ -80,6 +92,64 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def build_line_graph_native(
+    edge_src: np.ndarray, edge_dst: np.ndarray, jimages: np.ndarray,
+    dirs: np.ndarray, n_nodes: int, angle_centers: np.ndarray,
+    angle_gamma: float,
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
+    """(lg_src, lg_dst, lg_feat[f32], angles[f64]) or None if unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    e = int(edge_src.shape[0])
+    src = np.ascontiguousarray(edge_src, np.int32)
+    dst = np.ascontiguousarray(edge_dst, np.int32)
+    jim = np.ascontiguousarray(jimages, np.int32).reshape(e, 3)
+    dvec = np.ascontiguousarray(dirs, np.float64).reshape(e, 3)
+    centers = np.ascontiguousarray(angle_centers, np.float64)
+    n_centers = centers.shape[0]
+    feat_dim = n_centers + 3
+    cap = max(e * 16, 64)
+    while True:
+        lg_src = np.empty(cap, np.int32)
+        lg_dst = np.empty(cap, np.int32)
+        lg_feat = np.empty((cap, feat_dim), np.float32)
+        angles = np.empty(cap, np.float64)
+        need = lib.build_line_graph(
+            e, src, dst, jim, dvec, int(n_nodes), centers, n_centers,
+            float(angle_gamma), cap, lg_src, lg_dst, lg_feat, angles)
+        if need <= cap:
+            return (lg_src[:need].copy(), lg_dst[:need].copy(),
+                    lg_feat[:need].copy(), angles[:need].copy())
+        cap = int(need)
+
+
+def cutoff_neighbors_native(
+    frac: np.ndarray, lattice: np.ndarray, cutoff: float, reps: List[int],
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
+    """(src, dst, images, dists, dirs) or None if unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = int(frac.shape[0])
+    frac_c = np.ascontiguousarray(frac, np.float64).reshape(n, 3)
+    lat_c = np.ascontiguousarray(lattice, np.float64).reshape(3, 3)
+    reps_c = np.ascontiguousarray(reps, np.int32)
+    cap = max(n * 64, 64)
+    while True:
+        src = np.empty(cap, np.int32)
+        dst = np.empty(cap, np.int32)
+        img = np.empty((cap, 3), np.int32)
+        dist = np.empty(cap, np.float64)
+        dirs = np.empty((cap, 3), np.float64)
+        need = lib.cutoff_neighbors(n, frac_c, lat_c, float(cutoff), reps_c,
+                                    cap, src, dst, img, dist, dirs)
+        if need <= cap:
+            return (src[:need].copy(), dst[:need].copy(), img[:need].copy(),
+                    dist[:need].copy(), dirs[:need].copy())
+        cap = int(need)
 
 
 def _store_columns(store):

@@ -25,7 +25,7 @@ from ..data.batching import BatchBudget, epoch_batches
 from ..data.splits import derive_splits
 from ..data.store import GraphStore
 from ..data.transforms import FeatureScaler, LogTransformer
-from ..models.alignn import Alignn, AlignnConfig
+from ..models.alignn import Alignn, AlignnConfig, DeviceBatch, alignn_embed
 from ..utils.device import resolve_device
 from .artifacts import save_conformal, save_member, save_scaler_state
 from .bins import compute_bin_statistics
@@ -54,10 +54,6 @@ def check_supported(cfg: TrainConfig) -> None:
         unported.append("--giant-graphs boundary")
     if cfg.member_isolation == "process":
         unported.append("--member-isolation process")
-    if cfg.enable_density_weighting:
-        unported.append("--enable-density-weighting (KNN weights)")
-    if cfg.save_embeddings:
-        unported.append("--save-embeddings")
     if cfg.resume or cfg.checkpoint_every > 0:
         unported.append("--resume / --checkpoint-every")
     if cfg.profile_dir:
@@ -262,6 +258,9 @@ def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
         calib_y, setup.transformer, cfg.conformal_alpha, cfg.conformal_method)
     save_conformal(save_dir / "conformal.json", conf, a, b)
 
+    if cfg.save_embeddings:
+        _save_embeddings(save_dir, members, s, setup, dev)
+
     # --- final test report -------------------------------------------------
     summary: Dict = {"members": len(members),
                      "optimizer_steps": int(sum(steps)),
@@ -303,3 +302,23 @@ def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
     (save_dir / "train_summary.json").write_text(
         json.dumps(summary, indent=2, default=float))
     return summary
+
+
+def _save_embeddings(save_dir: Path, members: Sequence[Alignn],
+                     store: GraphStore, setup: TrainingSetup,
+                     device: torch.device) -> None:
+    """Ensemble-mean penultimate embeddings per split (reference
+    train.py:2125-2131): `embeddings_{split}.npz` with `z` [n_split, H]."""
+    splits = {"train": setup.train_idx, "val": setup.val_idx,
+              "calib": setup.calib_idx, "test": setup.test_idx}
+    for name, idx in splits.items():
+        if not idx:
+            continue
+        accum = []
+        for batch in epoch_batches(store, idx, setup.budget, shuffle=False):
+            db = DeviceBatch.from_batch(batch, device)
+            z_mean = torch.stack([alignn_embed(m.to(device), db)
+                                  for m in members]).mean(dim=0)
+            mask = np.asarray(batch.graph_mask) > 0
+            accum.append(z_mean.cpu().numpy()[mask])
+        np.savez(save_dir / f"embeddings_{name}.npz", z=np.concatenate(accum))

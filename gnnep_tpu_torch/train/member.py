@@ -1,6 +1,6 @@
 """Single ensemble-member training on one device: epoch loop, best-state
-selection with the reference's tie-break cascade, early stopping (the
-counterpart of `gnnep_tpu.train.member`).
+selection with the reference's tie-break cascade, early stopping, optional
+KNN density weighting (the counterpart of `gnnep_tpu.train.member`).
 
 Selection semantics track the reference trainer
 (`scripts/train.py:1712-1804`): candidates are epochs whose val MAE is
@@ -10,7 +10,10 @@ within `delta_mae` of the global best; ties break by coverage-gap → ECE
 
 Each epoch's batches are packed on a background thread while the device
 trains the previous epoch; the shuffle permutation is drawn on the calling
-thread, so the draw order is that of a synchronous loop.
+thread, so the draw order is that of a synchronous loop. Per-sample loss
+weights (inverse frequency, KNN density, or both multiplied) are grafted
+onto the packed batches' `weight` field, which reaches the captured step
+through its static buffers (`DeviceBatch.copy_from`).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from ..data.store import GraphStore
 from ..data.transforms import LogTransformer
 from ..models.alignn import Alignn, AlignnConfig, init_alignn
 from .config import TrainConfig
+from .knn_weights import compute_knn_weights
 from .loop import (TrainHyper, collect_predictions, cosine_lr, make_forward,
                    make_train_step)
 from .metrics import eval_metrics
@@ -138,6 +142,58 @@ def _graft_weights(batches, weight_arr: Optional[np.ndarray]):
     return out
 
 
+def _knn_snapshot(model: Alignn, store: GraphStore, cfg: TrainConfig,
+                  budget: BatchBudget, effective: List[int], epoch: int
+                  ) -> Optional[Dict[int, float]]:
+    """KNN density weights over the member's current embeddings of its
+    UNIQUE train ids, or None when the coverage guard (or the audit) finds
+    a train id without a weight (reference train.py:1874-1903).
+
+    `effective` is the bootstrap resample with duplicates, and duplicated
+    embeddings sit at distance 0 of each other, inflating KNN density (hence
+    down-weighting) for multiply-drawn samples; the reference snapshots the
+    train set once (train.py:930-1010)."""
+    snap_ids = sorted({int(g) for g in effective})
+    snap = epoch_batches(store, snap_ids, budget, shuffle=False)
+    weights = compute_knn_weights(
+        model, snap, store, k=cfg.knn_k, eps=cfg.knn_eps,
+        alpha=cfg.knn_alpha, beta=cfg.knn_beta,
+        clip_min=cfg.knn_weight_min if cfg.knn_weight_min > 0 else None,
+        clip_max=cfg.knn_weight_max if cfg.knn_weight_max > 0 else None)
+    # every effective train id must have a weight — a silent
+    # default-to-1.0 would skew the loss unnoticed
+    missing = sorted(set(snap_ids) - set(weights.keys()))
+    if missing:
+        print(f"[Weights] Coverage failure: KNN weights missing "
+              f"{len(missing)} train ids; examples: {missing[:5]}")
+        return None
+    if cfg.knn_coverage_audit:
+        total = miss = 0
+        max_b = int(cfg.knn_coverage_max_batches)
+        for b_idx, b in enumerate(epoch_batches(store, snap_ids, budget,
+                                                shuffle=False)):
+            ids = np.asarray(b.sample_index)
+            real = ids[ids >= 0]
+            total += int(real.size)
+            miss += int(sum(1 for ti in real.tolist()
+                            if int(ti) not in weights))
+            if max_b > 0 and (b_idx + 1) >= max_b:
+                break
+        pct = ((total - miss) / total * 100.0) if total else float("nan")
+        print(f"[Weights] Coverage audit: total={total}, "
+              f"covered={total - miss} ({pct:.2f}%), missing={miss}")
+        if miss > 0:
+            print("[Weights] Coverage failure: audit detected missing train "
+                  "ids; skipping activation.")
+            return None
+    if cfg.verbose:
+        vals = list(weights.values())
+        print(f"[Weights] Epoch {epoch}: KNN weights for {len(vals)} "
+              f"samples | mean={np.mean(vals):.3f}, "
+              f"min={np.min(vals):.3f}, max={np.max(vals):.3f}")
+    return weights
+
+
 def _metric_sums(ms) -> np.ndarray:
     """[loss, graphs, abs_err, sq_err, logvar, n_elements] summed over the
     steps of `ms` (StepMetrics of 0-d or [K] tensors), read back once."""
@@ -163,7 +219,8 @@ def train_member(
     taken).
 
     `freq_weights`: optional [n_graphs] per-sample inverse-frequency loss
-    weights (active when --freq-gamma > 0; `train.bins.freq_sample_weights`)."""
+    weights (active when --freq-gamma > 0; `train.bins.freq_sample_weights`).
+    Composed multiplicatively with KNN density weights when both are on."""
     hyper = TrainHyper(weight_decay=cfg.weight_decay,
                        log_sigma_l2=cfg.log_sigma_l2,
                        feature_jitter_std=cfg.feature_jitter_std,
@@ -196,6 +253,10 @@ def train_member(
     n_steps = 0
     shuffle_rng = np.random.default_rng(member_seed + 17)
     pack_workers = max(int(cfg.pack_workers), 1)
+    # KNN density-weighting state (opt-in; reference train.py:1822-1916)
+    weights_by_index: Optional[Dict[int, float]] = None
+    weights_active_epoch: Optional[int] = None
+    last_snapshot_epoch: Optional[int] = None
     t0 = time.time()
 
     def snapshot() -> Dict[str, torch.Tensor]:
@@ -212,8 +273,18 @@ def train_member(
         next_batches = submit_pack()
         for epoch in range(1, cfg.epochs + 1):
             step.set_lr(mean_sched(epoch - 1), sigma_sched(epoch - 1))
-            weight_arr = (np.asarray(freq_weights, dtype=np.float32)
-                          if freq_weights is not None else None)
+            use_weights = (cfg.enable_density_weighting
+                           and weights_by_index is not None
+                           and weights_active_epoch is not None
+                           and epoch >= weights_active_epoch)
+            weight_arr = None
+            if use_weights or freq_weights is not None:
+                weight_arr = (np.asarray(freq_weights, dtype=np.float32).copy()
+                              if freq_weights is not None
+                              else np.ones(store.n_graphs, dtype=np.float32))
+                if use_weights:  # compose KNN density × inverse-frequency
+                    for gi, w in weights_by_index.items():
+                        weight_arr[gi] *= w
             batches = _graft_weights(next_batches.result(), weight_arr)
             if epoch < cfg.epochs:
                 next_batches = submit_pack()
@@ -271,6 +342,22 @@ def train_member(
                         break
             else:
                 stale = 0
+
+            # KNN weight refresh after warmup (activated next epoch)
+            if (cfg.enable_density_weighting
+                    and epoch >= cfg.weight_warmup_epochs
+                    and (weights_by_index is None
+                         or (cfg.knn_refresh > 0
+                             and (last_snapshot_epoch is None
+                                  or epoch - last_snapshot_epoch
+                                  >= cfg.knn_refresh)))):
+                weights_by_index = _knn_snapshot(model, store, cfg, budget,
+                                                 effective, epoch)
+                if weights_by_index is None:
+                    last_snapshot_epoch = weights_active_epoch = None
+                else:
+                    last_snapshot_epoch = epoch
+                    weights_active_epoch = epoch + 1
 
     # this member's captured programs and their pools go before the next
     # member starts

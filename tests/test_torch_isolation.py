@@ -48,7 +48,15 @@ def test_importing_the_port_loads_no_jax():
             "gnnep_tpu_torch.train.member",
             "gnnep_tpu_torch.ops.cuda.segment_sum",
             "gnnep_tpu_torch.ops.cuda.attention",
-            "gnnep_tpu_torch.ops.cuda.aggregate"} <= set(mods)
+            "gnnep_tpu_torch.ops.cuda.aggregate",
+            "gnnep_tpu_torch.cli.evaluate", "gnnep_tpu_torch.cli.fetch",
+            "gnnep_tpu_torch.evaluate.runner",
+            "gnnep_tpu_torch.evaluate.metrics",
+            "gnnep_tpu_torch.evaluate.plots", "gnnep_tpu_torch.elements",
+            "gnnep_tpu_torch.data.structure",
+            "gnnep_tpu_torch.data.neighbors",
+            "gnnep_tpu_torch.data.featurize",
+            "gnnep_tpu_torch.train.knn_weights"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -182,9 +182,10 @@ def test_cli_modes_on_cpu(ensemble_dir, tmp_path):
                          batch_size=4)
     got = json.loads((tmp_path / "custom.json").read_text())["predictions"]
     _assert_results_close(got, want, rtol=1e-3)
-    # structures need on-the-fly featurization: not ported yet
+    # structure entries are featurized on the fly (tests/
+    # test_torch_custom_structures.py); a malformed one raises, as in JAX
     custom.write_text(json.dumps({"materials": [{"structure": {}}]}))
-    with pytest.raises(NotImplementedError, match="featurization"):
+    with pytest.raises(KeyError, match="lattice"):
         pcli.main(base + runs["custom"])
     with pytest.raises(NotImplementedError, match="giant"):
         pcli.main(base + runs["random"] + ["--giant-shards", "2"])
