@@ -92,6 +92,36 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      (distances and weights within 1e-4, neighbour sets equal but at
      distance ties), and a captured step on batches carrying those weights
      equals the eager step.
+     Then resume, member processes, profiling, bundles and conversion.
+     resume: `cli.train --checkpoint-every 1`, one member × 4 epochs, f32
+     and bf16, its epoch-2 resume file copied aside as a run stopped
+     there would leave it, then 3 runs of `--resume` from the copies:
+     'resumed at epoch 3', the steps of the uninterrupted run less the
+     first two epochs', replays after the warm-up, kernels 6 and 7
+     2·layers times a step and 5 2·layers times a forward; at epoch 4
+     Adam's count and the generator's state equal the uninterrupted run's
+     and the parameters (and `model_0.npz`, against the uninterrupted run
+     at its best epoch) lie within 4× the resumed runs' distance from each
+     other (float atomics); a captured step from the epoch-2 state equals
+     the eager steps from it, at the `check` limits below. isolation:
+     `cli.train --member-isolation process` (2 members × 3 epochs f32):
+     each child's launch counts (kernels 6 and 7 2·layers a step, none in
+     the parent), and each member within 4× three in-process runs'
+     distance from each other, at its best epoch. profile: `cli.train
+     --profile-dir` (1 member × 2 epochs): one trace, the first epoch
+     replayed its captured step, and the trace's calls of kernels 5, 6 and
+     7 equal their launches over that epoch; the first epoch's wall traced
+     and untraced. bundle: `cli.bundle export` of the 5-member flagship
+     ensemble (f32, bf16) and the kv+e and external-logits ensembles,
+     `python -m gnnep_tpu_torch.cli.bundle predict` in a fresh process on
+     `[serve]`'s request (bitwise `cli.predict`'s, else the op named and
+     the serving tolerance), then loaded and counted here (kernel 5, 3 or
+     1 members × batches × 2·layers times, each member's program captured
+     and replayed), and member 0's program beside its captured `Forward`
+     (ms per batch). convert: `cli.convert` of a flagship-width reference
+     state dict (`.pt`, random weights from a seed), served through
+     `cli.predict` on the card and the CPU: kernel 5 2·layers a batch,
+     card equal to CPU at the serving tolerance.
   6. check: one eager train step on the card against the CPU plain step
      from the same parameters and batch, dropout and jitter off, on each
      rung (span included), and on the default rung at hidden 512 / 4 heads
@@ -173,13 +203,6 @@ PEAK_TF32 = 495e12
 # (hidden, heads) beyond the kernels' old limits (Fe = hidden > 256, head
 # width > 128), all of which the trainer takes: head widths 128, 256, 192
 WIDTHS = ((512, 4), (256, 1), (384, 2))
-# idle seconds inside each trace before and after its traced work: the
-# profiler drops a kernel record whose timestamp, converted from the
-# device's clock, falls outside the trace's window, and on the H100 that
-# conversion moved by milliseconds to tens of milliseconds between traces,
-# enough to drop the first or last kernels of a traced chunk
-# (`gnnep_tpu_torch/dev/trace_window_probe.py`)
-TRACE_MARGIN_S = 0.5
 
 
 def say(phase: str, **kv) -> None:
@@ -190,9 +213,12 @@ def say(phase: str, **kv) -> None:
 @contextlib.contextmanager
 def traced():
     """A torch.profiler trace of the card and the host whose window holds
-    TRACE_MARGIN_S of idle time on each side of the block's work; the block
-    synchronizes the card before it ends."""
+    TRACE_MARGIN_S of idle time on each side of the block's work (the
+    trainer's `--profile-dir` trace holds the same,
+    `gnnep_tpu_torch.utils.profiling`); the block synchronizes the card
+    before it ends."""
     import torch
+    from gnnep_tpu_torch.utils.profiling import TRACE_MARGIN_S
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2412,6 +2438,704 @@ def phase_knn(root: Path, data: Path, layers: int, setup, train_batches,
                 snapshot_seconds=snap_secs, snapshot_graphs=Zs.shape[0])
 
 
+# ------------------------------------------- phase 5b (resume, processes,
+# profiling, bundles, conversion)
+RESUME_EPOCHS = 4
+
+
+@contextlib.contextmanager
+def archives(copy_at=None, copy_to=()):
+    """`member.save_pytree` wrapped: every resume archive a member writes
+    (its leaves as host arrays, and its meta) is also kept by (member seed,
+    epoch), and the file of epoch `copy_at` is copied into each directory
+    of `copy_to`, as a run stopped after that epoch would have left it.
+    The wrapper goes afterwards."""
+    import shutil
+    import torch
+    from gnnep_tpu_torch.train import member
+    real, kept = member.save_pytree, {}
+
+    def saving(path, leaves, meta=None):
+        real(path, leaves, meta)
+        seed = int(Path(path).stem.rsplit("_", 1)[1])
+        kept[(seed, meta["epoch"])] = dict(
+            leaves=[np.array(x.detach().cpu()) if isinstance(x, torch.Tensor)
+                    else np.asarray(x) for x in leaves], meta=dict(meta))
+        if meta["epoch"] == copy_at:
+            for d in copy_to:
+                Path(d).mkdir(parents=True, exist_ok=True)
+                shutil.copy2(path, Path(d) / Path(path).name)
+
+    member.save_pytree = saving
+    try:
+        yield kept
+    finally:
+        member.save_pytree = real
+
+
+def quiet_off(argv: list) -> list:
+    """The request with the trainer's per-epoch and best-epoch lines on."""
+    return [a for a in argv if a != "--quiet"]
+
+
+def _rel(a, b, scale) -> float:
+    """‖a − b‖ / ‖scale‖ over lists of arrays."""
+    d = np.sqrt(sum(float(np.sum((x.astype(np.float64) - y) ** 2))
+                    for x, y in zip(a, b)))
+    s = np.sqrt(sum(float(np.sum(np.asarray(x, np.float64) ** 2))
+                    for x in scale))
+    return d / max(s, 1e-30)
+
+
+def member_init(cfg_argv: list, setup, i: int):
+    """Member i's initial parameters (leaf order) and its seed, as
+    `run_training` draws them for the request `cfg_argv`."""
+    from gnnep_tpu_torch.cli import train as cli_train
+    from gnnep_tpu_torch.models.alignn import init_alignn
+    from gnnep_tpu_torch.train.artifacts import leaves_from_params
+    from gnnep_tpu_torch.train.ensemble import member_plan
+    cfg = cli_train.config_from_args(cli_train.build_parser()
+                                     .parse_args(cfg_argv))
+    seed_i, _, _, _, mc, _ = member_plan(cfg, setup, i)
+    return leaves_from_params(init_alignn(np.random.default_rng(seed_i),
+                                          mc)), seed_i
+
+
+def npz_leaves(path: Path) -> list:
+    with np.load(path) as d:
+        return [d[k] for k in sorted(k for k in d.files
+                                     if k.startswith("leaf_"))]
+
+
+# how far, at most, a run under test may lie from the runs it is held
+# against, in multiples of those runs' own largest distance from each
+# other: on the card float atomics (kernel 6's dW_e, the pooling's
+# `index_add_`) move two runs of one member apart, by an amount that
+# varied fourfold between pairs of one call on an H100 (PERF.md §6)
+NOISE_FACTOR = 4.0
+
+
+def check_noise(what: str, pairs, refs, scale) -> dict:
+    """`pairs`: (got, want) leaf lists that should agree but for float
+    atomics; `refs`: leaf lists of runs that differ only by them. The
+    largest ‖got − want‖ / ‖scale‖ must be within NOISE_FACTOR times the
+    largest such distance between two of `refs`, plus 1e-6. Returns both."""
+    got = max(_rel(g, w, scale) for g, w in pairs)
+    noise = max(_rel(refs[i], refs[j], scale)
+                for i in range(len(refs)) for j in range(i + 1, len(refs)))
+    if not got <= NOISE_FACTOR * noise + 1e-6:
+        raise AssertionError(f"{what}: {got:.3e} of the update away, beyond "
+                             f"{NOISE_FACTOR:g}x the runs' own {noise:.3e}")
+    return {"rel_dist": got, "runs_rel_dist": noise}
+
+
+RESUMES = 3
+
+
+def phase_resume(root: Path, data: Path, layers: int, setup, train_batches,
+                 dev):
+    """Mid-training resume on the default rung through `cli.train`, f32 and
+    bf16: one member for RESUME_EPOCHS epochs with `--checkpoint-every 1`,
+    whose epoch-2 archive is copied aside as a run stopped there would have
+    left it; then RESUMES runs of `cli.train --resume` from those copies,
+    each to epoch RESUME_EPOCHS (the LR schedule the 4-epoch one). Each
+    resumed run prints 'resumed at epoch 3' and no earlier epoch, takes
+    the uninterrupted run's steps less the first two epochs' (Adam's count
+    in the epoch-2 archive), replays its captured step after its warm-up,
+    launches kernels 6 and 7 2·layers times a step and kernel 5 2·layers
+    times a forward (train and eval), and ends with Adam's count and the
+    generator's state equal to the uninterrupted run's. Their parameters
+    at epoch RESUME_EPOCHS, and their `model_0.npz` against the
+    uninterrupted run's parameters at their best epoch, lie within
+    NOISE_FACTOR times the resumed runs' distance from each other (all
+    start from the same bits at epoch 2: only float atomics part them;
+    `check_noise`). Then a captured step from the epoch-2 state (written
+    into the step after its capture) against eager steps from it
+    (`phase_check_captured`)."""
+    import torch
+    from gnnep_tpu_torch.cli import train as cli_train
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        base = quiet_off(train_argv(data, root / "unused", dtype, 1,
+                                    RESUME_EPOCHS)) + ["--checkpoint-every",
+                                                       "1"]
+        init, seed = member_init(base, setup, 0)
+        n = len(init)
+        outs = {k: root / f"resume_{dtype}_{k}"
+                for k in ["full"] + [f"r{i}" for i in range(RESUMES)]}
+        runs, secs = {}, {}
+        for kind, out in outs.items():
+            args = [a if a != str(root / "unused") else str(out)
+                    for a in base] + ([] if kind == "full" else ["--resume"])
+            copies = ([outs[k] for k in outs if k != "full"]
+                      if kind == "full" else [])
+            t0 = time.perf_counter()
+            log_path = root / f"resume_{dtype}_{kind}.txt"
+            with open(log_path, "w") as log, \
+                    contextlib.redirect_stdout(log), \
+                    archives(2, copies) as kept:
+                result = run_counted(lambda: cli_train.main(args))
+            torch.cuda.synchronize()
+            secs[kind] = time.perf_counter() - t0
+            runs[kind] = dict(kept=kept, out=out, result=result,
+                              log=log_path.read_text())
+        full = runs["full"]
+        first_two = int(full["kept"][(seed, 2)]["leaves"][4 * n])
+        total = full["result"][0]["optimizer_steps"]
+        last_full = full["kept"][(seed, RESUME_EPOCHS)]["leaves"]
+        resumed = [runs[k] for k in outs if k != "full"]
+        for r in resumed:
+            summary, counts, _, forwards, replays = r["result"]
+            log = r["log"]
+            if ("resumed at epoch 3" not in log or "Epoch 001" in log
+                    or "Epoch 002" in log or "Epoch 003" not in log):
+                raise AssertionError(f"resume {dtype}: a resumed run's log "
+                                     "does not start at epoch 3")
+            steps = summary["optimizer_steps"]
+            if steps != total - first_two or steps <= 0:
+                raise AssertionError(f"resume {dtype}: {steps} steps "
+                                     f"resumed, {total} uninterrupted, "
+                                     f"{first_two} in the first two epochs")
+            check_replays(f"resume {dtype}", replays, steps, 1)
+            want = {"attn_eproj_bwd": 2 * layers * steps,
+                    "csr_segment_sum": 2 * layers * steps,
+                    "attn_eproj_fwd": 2 * layers * (forwards["train"]
+                                                    + forwards["eval"])}
+            for name, n_want in want.items():
+                if counts[name] != n_want or forwards["train"] != steps:
+                    raise AssertionError(
+                        f"resume {dtype}: {name} launched {counts[name]} "
+                        f"times, expected {n_want} ({steps} steps, "
+                        f"{forwards} forwards)")
+            last = r["kept"][(seed, RESUME_EPOCHS)]
+            r["best"] = int(last["meta"]["best_epoch"])
+            if int(last["leaves"][4 * n]) != int(last_full[4 * n]):
+                raise AssertionError(f"resume {dtype}: Adam's count differs")
+            if not np.array_equal(last["leaves"][4 * n + 1],
+                                  last_full[4 * n + 1]):
+                raise AssertionError(f"resume {dtype}: the generator's state "
+                                     f"at epoch {RESUME_EPOCHS} differs")
+            if (r["out"] / f"resume_member_{seed}.npz").exists():
+                raise AssertionError(f"resume {dtype}: the resume file "
+                                     "outlived the member")
+        scale = [a - b for a, b in zip(last_full[:n],
+                                       full["kept"][(seed, 2)]["leaves"][:n])]
+        finals = [r["kept"][(seed, RESUME_EPOCHS)]["leaves"][:n]
+                  for r in resumed]
+        final = check_noise(
+            f"resume {dtype} parameters at epoch {RESUME_EPOCHS}",
+            [(f, last_full[:n]) for f in finals], finals, scale)
+        saved = check_noise(
+            f"resume {dtype} model_0.npz",
+            [(npz_leaves(r["out"] / "model_0.npz"),
+              full["kept"][(seed, r["best"])]["leaves"][:n])
+             for r in resumed], finals, scale)
+        names = leaf_names_of(setup)
+        arch = full["kept"][(seed, 2)]["leaves"]
+        state = dict(params=dict(zip(names, arch[:n])),
+                     mu=dict(zip(names, arch[2 * n:3 * n])),
+                     nu=dict(zip(names, arch[3 * n:4 * n])),
+                     count=int(arch[4 * n]))
+        phase_check_captured(setup, train_batches, dev, "eproj", dtype,
+                             what="captured_step_vs_eager_resumed",
+                             state=state)
+        summary, counts, _, forwards, replays = resumed[0]["result"]
+        res[dtype] = dict(counts=counts, steps=summary["optimizer_steps"],
+                          uninterrupted_steps=total,
+                          first_two_epochs_steps=first_two,
+                          best_epochs=[r["best"] for r in resumed],
+                          seconds=secs, final=final, model_0=saved)
+        say("resume", dtype=dtype, epochs=RESUME_EPOCHS, resumed_from=2,
+            resumed_runs=RESUMES, resumed_steps=summary["optimizer_steps"],
+            uninterrupted_steps=total, first_two_epochs_steps=first_two,
+            step_replays=replays["train"], eval_forwards=forwards["eval"],
+            kernel_launches=json.dumps(counts),
+            adam_count_equal=True, generator_state_equal=True,
+            final_rel_dist=f"{final['rel_dist']:.3e}",
+            final_resumed_runs_rel_dist=f"{final['runs_rel_dist']:.3e}",
+            best_epochs=",".join(str(r["best"]) for r in resumed),
+            model0_rel_dist=f"{saved['rel_dist']:.3e}",
+            cli_seconds="|".join(f"{k}={v:.2f}" for k, v in secs.items()))
+    return res
+
+
+def leaf_names_of(setup):
+    """The flagship member's leaf names (the checkpoint's order)."""
+    from gnnep_tpu_torch.models.alignn import leaf_names
+    return leaf_names(check_config(setup, [], "eproj")[0])
+
+
+INPROC_RUNS = 3
+_CHILD_LINE = re.compile(r"^\[member_proc (\d+)\] launches=(\{.*\})$",
+                         re.MULTILINE)
+_BEST_LINE = re.compile(r"^\[Member (\d+)\] Best epoch (\d+) ", re.MULTILINE)
+
+
+def child_counts(log: str) -> dict:
+    """{member: {kernel: launches}} from the member processes' lines."""
+    by_key = {f"{mod.rsplit('.', 1)[1]}.{attr}": name
+              for name, (mod, attr) in COUNTERS.items()}
+    return {int(i): {by_key[k]: v for k, v in json.loads(js).items()
+                     if k in by_key}
+            for i, js in _CHILD_LINE.findall(log)}
+
+
+def phase_isolation(root: Path, data: Path, layers: int, setup,
+                    inproc_dir: Path):
+    """`cli.train --member-isolation process`, TRAIN_MEMBERS members ×
+    TRAIN_EPOCHS epochs in f32 (phase_train's f32 request): each member
+    trained in its own `python -m gnnep_tpu_torch.train.member_proc`
+    process, which prints its launch counts (kernels 6 and 7 2·layers times
+    per optimizer step that it reports); the parent launches neither.
+    Against INPROC_RUNS in-process runs of the same request that keep
+    every epoch's parameters (`--checkpoint-every 1`, `archives`), each
+    process member's `model_{i}.npz` lies within NOISE_FACTOR times their
+    distance from each other of their parameters at the process member's
+    best epoch (`check_noise`; at its best epoch, so that a best epoch two
+    runs choose apart cannot fail it); phase_train's run (`inproc_dir`) is
+    set beside it."""
+    import torch
+    from gnnep_tpu_torch.cli import train as cli_train
+    base = quiet_off(train_argv(data, root / "unused", "float32",
+                                TRAIN_MEMBERS, TRAIN_EPOCHS))
+
+    def argv_for(out, extra):
+        return [a if a != str(root / "unused") else str(out)
+                for a in base] + extra
+
+    recorded = []
+    for k in range(INPROC_RUNS):
+        out = root / f"isolation_inproc_{k}"
+        with open(root / f"isolation_inproc_{k}.txt", "w") as log, \
+                contextlib.redirect_stdout(log), archives() as kept:
+            cli_train.main(argv_for(out, ["--checkpoint-every", "1"]))
+        recorded.append(kept)
+    out = root / "isolation_proc"
+    t0 = time.perf_counter()
+    with open(root / "isolation_proc.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        summary, counts, _, _, _ = run_counted(lambda: cli_train.main(
+            argv_for(out, ["--member-isolation", "process"])))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log = (root / "isolation_proc.txt").read_text()
+    kids = child_counts(log)
+    best = {int(s): int(e) for s, e in _BEST_LINE.findall(log)}
+    steps = summary["member_optimizer_steps"]
+    if sorted(kids) != list(range(TRAIN_MEMBERS)) or len(best) != \
+            TRAIN_MEMBERS:
+        raise AssertionError(f"isolation: launch lines of members "
+                             f"{sorted(kids)}, best-epoch lines {best}")
+    if counts["attn_eproj_bwd"] or counts["csr_segment_sum"]:
+        raise AssertionError(f"isolation: the parent trained ({counts})")
+    members = []
+    for i in range(TRAIN_MEMBERS):
+        for name in ("attn_eproj_bwd", "csr_segment_sum"):
+            if kids[i][name] != 2 * layers * steps[i]:
+                raise AssertionError(
+                    f"isolation: member {i}'s process launched {name} "
+                    f"{kids[i][name]} times for {steps[i]} steps")
+        init, seed = member_init(base, setup, i)
+        n = len(init)
+        b = best[seed]
+        got = npz_leaves(out / f"model_{i}.npz")
+        refs = [r[(seed, b)]["leaves"][:n] for r in recorded]
+        upd = [w - v for w, v in zip(refs[0], init)]
+        close = check_noise(f"isolation member {i} (best epoch {b})",
+                            [(got, r) for r in refs], refs, upd)
+        close["phase_train_rel_dist"] = _rel(
+            got, npz_leaves(inproc_dir / f"model_{i}.npz"), upd)
+        members.append(close)
+        say("isolation", member=i, process_steps=steps[i], best_epoch=b,
+            child_kernel_launches=json.dumps(kids[i]),
+            rel_dist=f"{close['rel_dist']:.3e}",
+            inproc_runs_rel_dist=f"{close['runs_rel_dist']:.3e}",
+            phase_train_rel_dist=f"{close['phase_train_rel_dist']:.3e}")
+    launches = {name: sum(k[name] for k in kids.values())
+                for name in ("attn_eproj_fwd", "attn_eproj_bwd",
+                             "csr_segment_sum")}
+    say("isolation", members=TRAIN_MEMBERS, epochs=TRAIN_EPOCHS,
+        cli_seconds=f"{secs:.2f}", parent_kernel_launches=json.dumps(counts),
+        children_kernel_launches=json.dumps(launches))
+    return dict(launches=launches, seconds=secs, members=members,
+                member_optimizer_steps=steps)
+
+
+def kernel_calls(trace: Path) -> dict:
+    """{kernel: calls} of the CUDA kernel records in a Chrome trace
+    (`PROFILED`'s patterns)."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {pattern: sum(1 for k in names
+                         if re.search(rf"\b{pattern}\b", k))
+            for pattern in PROFILED}
+
+
+def phase_profile(root: Path, data: Path, layers: int):
+    """`cli.train --profile-dir` (one member, 2 epochs, f32) beside the same
+    run untraced: one trace file, written by the trainer's own
+    `utils.profiling.maybe_trace`; the traced (first) epoch ran the captured
+    step (replays); the trace's calls of kernels 5, 6 and 7 equal their
+    launch counts over that epoch. Also the first epoch's steps' wall,
+    traced and untraced (from a wrapper around the trainer's
+    `maybe_trace`, which times the block inside the trace's window)."""
+    import torch
+    from gnnep_tpu_torch.cli import train as cli_train
+    from gnnep_tpu_torch.train import member
+    real = member.maybe_trace
+    epochs = []
+
+    @contextlib.contextmanager
+    def timed(trace_dir):
+        with real(trace_dir):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            epochs.append(dict(wall_s=time.perf_counter() - t0,
+                               counts=read_counts(), replays=read_replays()))
+
+    walls, first = {}, {}
+    member.maybe_trace = timed
+    try:
+        for kind in ("untraced", "traced"):
+            epochs.clear()
+            trace_dir = root / f"profile_{kind}"
+            argv = train_argv(data, root / f"trained_profile_{kind}",
+                              "float32", 1, 2)
+            if kind == "traced":
+                argv += ["--profile-dir", str(trace_dir)]
+            t0 = time.perf_counter()
+            with open(root / f"profile_{kind}.txt", "w") as log, \
+                    contextlib.redirect_stdout(log):
+                cli_train.main(argv)
+            torch.cuda.synchronize()
+            walls[kind] = time.perf_counter() - t0
+            first[kind] = epochs[0]
+    finally:
+        member.maybe_trace = real
+    traces = sorted((root / "profile_traced").glob("*.pt.trace.json"))
+    if len(traces) != 1 or (root / "profile_untraced").exists():
+        raise AssertionError(f"profile: trace files {traces}")
+    calls = kernel_calls(traces[0])
+    counts, replays = first["traced"]["counts"], first["traced"]["replays"]
+    if replays["train"] <= 0:
+        raise AssertionError(f"profile: the traced epoch replayed no "
+                             f"captured step ({replays})")
+    seen = {}
+    for pattern in (r"attn_eproj_fwd_kernel", r"attn_eproj_bwd_attn_kernel",
+                    r"csr_segment_sum_kernel"):
+        launched = sum(counts[n] for n in PROFILED[pattern])
+        seen[pattern] = (calls[pattern], launched)
+        if calls[pattern] != launched or launched <= 0:
+            raise AssertionError(f"profile: the trace holds {calls[pattern]} "
+                                 f"calls of {pattern}, the first epoch "
+                                 f"launched {launched}")
+    launches = {n: counts[n] for n in ("attn_eproj_fwd", "attn_eproj_bwd",
+                                       "csr_segment_sum")}
+    say("profile", run="cli_train_profile_dir", trace=traces[0].name,
+        trace_mb=f"{traces[0].stat().st_size / 1e6:.1f}",
+        first_epoch_step_replays=replays["train"],
+        trace_calls_equal_launch_counts=",".join(
+            f"{p}={c}" for p, (c, _) in seen.items()),
+        first_epoch_steps_wall_s=f"traced={first['traced']['wall_s']:.3f}|"
+                                 f"untraced={first['untraced']['wall_s']:.3f}",
+        cli_seconds=f"traced={walls['traced']:.2f}|"
+                    f"untraced={walls['untraced']:.2f}")
+    return dict(launches=launches, replays=replays, cli_seconds=walls,
+                first_epoch_steps_wall_s={k: v["wall_s"]
+                                          for k, v in first.items()})
+
+
+def _preds(path: Path):
+    preds = json.loads(path.read_text())["predictions"]
+    return ([p["material_id"] for p in preds],
+            np.asarray([p["mu"] for p in preds], np.float64),
+            np.asarray([p["sigma"] for p in preds], np.float64))
+
+
+def phase_bundle(root: Path, data: Path, ens: Path, rung_ens: dict, cfg,
+                 batches, dev):
+    """AOT serving bundles: `cli.bundle export` of the 5-member flagship
+    ensemble in f32 and bf16 and of the kv+e and external-logits ensembles
+    in f32, each then served by `python -m gnnep_tpu_torch.cli.bundle
+    predict` in a fresh process (the four at once) on the serving request
+    of `[serve]` (the
+    same 256 graphs in the same order): its predictions equal `cli.predict`'s
+    to the bit, or else (named) at the serving tolerance in f32 and at 1e-1
+    in bf16. Loaded in this process and counted: the rung's forward kernel
+    (5, 3 or 1) runs members × batches × 2·layers times and nothing else,
+    each member's program captured once and replayed on every later batch.
+    Then member 0's bundle program and its captured `Forward` side by side
+    over TIMING_BATCHES batches (wall and device ms per batch; the traced
+    pass's kernel calls equal the launch counts)."""
+    import torch
+    from gnnep_tpu_torch.cli import bundle as cli_bundle
+    from gnnep_tpu_torch.cli import predict as cli_predict
+    from gnnep_tpu_torch.data.store import GraphStore
+    from gnnep_tpu_torch.infer.bundle import ServingBundle
+    jobs = (("eproj", "float32", ens, "attn_eproj_fwd", MEMBERS, ""),
+            ("eproj", "bfloat16", ens, "attn_eproj_fwd", MEMBERS, ""),
+            ("kv+e", "float32", rung_ens["kv+e"], RUNGS["kv+e"]["fwd"],
+             RUNG_MEMBERS, "_kv+e"),
+            ("logits", "float32", rung_ens["logits"], RUNGS["logits"]["fwd"],
+             RUNG_MEMBERS, "_logits"))
+    here = Path(__file__).resolve().parent
+    metas, export_s, procs = {}, {}, {}
+    for rung, dtype, src, _, _, _ in jobs:
+        out = root / f"bundle_{rung}_{dtype}"
+        t0 = time.perf_counter()
+        with open(root / f"bundle_export_{rung}_{dtype}.txt", "w") as log, \
+                contextlib.redirect_stdout(log):
+            metas[rung, dtype] = cli_bundle.main(
+                ["export", "--ensemble-dir", str(src), "--data-dir",
+                 str(data), "--out", str(out), "--batch-size", str(BATCH),
+                 "--compute-dtype", dtype])
+        export_s[rung, dtype] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for rung, dtype, *_ in jobs:
+        log = open(root / f"bundle_predict_{rung}_{dtype}.txt", "w")
+        procs[rung, dtype] = (subprocess.Popen(
+            [sys.executable, "-m", "gnnep_tpu_torch.cli.bundle", "predict",
+             "--bundle-dir", str(root / f"bundle_{rung}_{dtype}"),
+             "--data-dir", str(data), "--num-samples", str(N_GRAPHS),
+             "--output-json", str(root / f"pred_bundle_{rung}_{dtype}.json")],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT), log)
+    process_s = {}
+    try:
+        for key, (proc, log) in procs.items():
+            rc = proc.wait(timeout=600)
+            process_s[key] = time.perf_counter() - t0
+            log.close()
+            if rc != 0:
+                raise AssertionError(
+                    f"bundle {key}: cli.bundle predict failed:\n"
+                    + Path(log.name).read_text()[-3000:])
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    out_all = {}
+    for rung, dtype, src, kernel, members, tag in jobs:
+        out, meta = root / f"bundle_{rung}_{dtype}", metas[rung, dtype]
+        ids, mu, sigma = _preds(root / f"pred_bundle_{rung}_{dtype}.json")
+        ids_c, mu_c, sigma_c = _preds(root / f"pred{tag}_{dtype}.json")
+        bitwise = ids == ids_c and np.array_equal(mu, mu_c) \
+            and np.array_equal(sigma, sigma_c)
+        err = max(np.abs(mu - mu_c).max(), np.abs(sigma - sigma_c).max())
+        # bf16: a bf16 unit flipped by the atomics early in the trunk moves
+        # a prediction by about 1 % on an H100 (PERF.md §6); a wrong member
+        # moves it by tens of percent
+        rtol, atol = ((SERVE_RTOL, SERVE_ATOL) if dtype == "float32"
+                      else (1e-1, 1e-3))
+        if ids != ids_c or not (np.allclose(mu, mu_c, rtol=rtol, atol=atol)
+                                and np.allclose(sigma, sigma_c, rtol=rtol,
+                                                atol=atol)):
+            raise AssertionError(f"bundle {rung} {dtype}: predictions differ "
+                                 f"from cli.predict's by {err:.3e}")
+        # loaded here, counted
+        t0 = time.perf_counter()
+        bundle = ServingBundle.load(out, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        store = bundle.ensemble.scaler.apply(GraphStore.load_dir(data))
+        idx = np.random.default_rng(42).choice(
+            store.n_graphs, size=N_GRAPHS, replace=False).tolist()
+        reset_counts()
+        bundle.predict(store, idx)
+        counts, replays = read_counts(), read_replays()
+        grew = counts.pop(kernel)
+        want = members * len(batches) * 2 * cfg.layers
+        want_replays = {"train": 0, "eval": members * (len(batches) - 1)}
+        if grew != want or any(counts.values()) or replays != want_replays:
+            raise AssertionError(
+                f"bundle {rung} {dtype}: {kernel} launched {grew} times "
+                f"(expected {members} members x {len(batches)} batches x 2 "
+                f"convs x {cfg.layers} layers = {want}), others {counts}, "
+                f"replays {replays} (expected {want_replays})")
+        rec = dict(kernel=kernel, launches=grew,
+                   export_s=export_s[rung, dtype], load_s=load_s,
+                   process_s=process_s[rung, dtype], bitwise=bool(bitwise),
+                   max_abs_err=float(err), programs=max(
+                       meta["member_programs"]) + 1)
+        if dtype == "float32" and not bitwise:
+            # the same request through cli.predict once more: whether the
+            # forward itself differs between runs (the pooling's
+            # `index_add_` adds in float atomics on the card)
+            again = root / f"pred{tag}_{dtype}_again.json"
+            with open(root / f"cli{tag}_again.txt", "w") as log, \
+                    contextlib.redirect_stdout(log):
+                cli_predict.main(serve_argv(root, data, src, dtype,
+                                            tag + "_again_")[:-1]
+                                 + [str(again)])
+            _, mu_a, sigma_a = _preds(again)
+            rec["cli_vs_cli_bitwise"] = bool(np.array_equal(mu_a, mu_c)
+                                             and np.array_equal(sigma_a,
+                                                                sigma_c))
+            rec["not_bitwise_op"] = ("index_add_ (segment_mean pooling, "
+                                     "float atomics)")
+        if rung == "eproj":
+            rec.update(_bundle_times(bundle, ens, batches, dev, dtype))
+        out_all[f"{rung}_{dtype}"] = rec
+        say("bundle", rung=rung, dtype=dtype, members=members,
+            programs=rec["programs"], kernel=kernel, kernel_launches=grew,
+            forward_replays=replays["eval"],
+            export_s=f"{rec['export_s']:.2f}", load_s=f"{load_s:.2f}",
+            fresh_process_predict_s=f"{rec['process_s']:.2f}",
+            bitwise_vs_cli_predict=bitwise, max_abs_err=f"{err:.3e}",
+            **{k: (f"{v:.3f}" if isinstance(v, float) else v)
+               for k, v in rec.items()
+               if k.startswith(("cli_vs", "not_bitwise", "ms_", "device_",
+                                "forward_"))})
+        del bundle
+    return out_all
+
+
+def _bundle_times(bundle, ens: Path, batches, dev, dtype: str) -> dict:
+    """Member 0 through its bundle program and through the captured
+    `Forward`, each over TIMING_BATCHES batches read back once: wall ms per
+    batch (median of 5 passes) and device ms per batch (one traced pass,
+    its kernel calls held to the launch counts)."""
+    import torch
+    from gnnep_tpu_torch.infer.bundle import BundleForward
+    from gnnep_tpu_torch.train.artifacts import load_member
+    from gnnep_tpu_torch.train.loop import cast_model, make_forward
+    seq = [batches[i % len(batches)] for i in range(TIMING_BATCHES)]
+    out = {}
+    for kind in ("bundle", "forward"):
+        if kind == "bundle":
+            fwd, run = BundleForward(), bundle.members[0]
+        else:
+            fwd = make_forward(compute_dtype=dtype)
+            run = cast_model(load_member(ens / "model_0.npz", dev), dtype)
+        for b in seq[:2]:
+            fwd(run, b)[0].cpu()
+
+        def one_pass():
+            return torch.stack([torch.stack(fwd(run, b)) for b in seq]).cpu()
+
+        ms = chunk_ms(one_pass)[0] / len(seq)
+        label = {"bundle": "bundle_program",
+                 "forward": "forward_beside_bundle"}[kind]
+        _, dev_ms = profile_run(one_pass, label, dtype, len(seq),
+                                counted=True)
+        fwd.close()
+        out[f"ms_per_batch_{kind}"] = ms
+        out[f"device_ms_per_batch_{kind}"] = dev_ms
+    return out
+
+
+def reference_state(rng, cfg) -> dict:
+    """A HeteroAlignnRegressor state dict with the reference's parameter
+    names and torch layouts ([out, in]), weights U(±1/√fan_in), at `cfg`'s
+    widths; the base model's unused output heads included."""
+    import torch
+    h = cfg.hidden
+    sd = {}
+
+    def lin(name, out_dim, in_dim, bias=True):
+        b = 1.0 / np.sqrt(in_dim)
+        sd[f"{name}.weight"] = torch.from_numpy(
+            rng.uniform(-b, b, (out_dim, in_dim)).astype(np.float32))
+        if bias:
+            sd[f"{name}.bias"] = torch.from_numpy(
+                rng.uniform(-b, b, out_dim).astype(np.float32))
+
+    for name, dim in (("node", cfg.node_dim), ("edge", cfg.edge_dim),
+                      ("angle", cfg.angle_dim)):
+        lin(f"base.{name}_encoder.0", h, dim)
+        lin(f"base.{name}_encoder.2", h, h)
+    for i in range(cfg.layers):
+        for blk in (f"base.edge_blocks.{i}", f"base.node_blocks.{i}"):
+            if "node" in blk:
+                lin(f"{blk}.edge_proj", h, h)
+            for name in ("lin_query", "lin_key", "lin_value", "lin_skip"):
+                lin(f"{blk}.conv.{name}", h, h)
+            lin(f"{blk}.conv.lin_edge", h, h, bias=False)
+            lin(f"{blk}.conv.lin_beta", 1, 3 * h, bias=False)
+            sd[f"{blk}.norm.weight"] = torch.from_numpy(
+                rng.uniform(0.9, 1.1, h).astype(np.float32))
+            sd[f"{blk}.norm.bias"] = torch.from_numpy(
+                rng.uniform(-0.1, 0.1, h).astype(np.float32))
+    lin("base.feat_proj.0", h, h + cfg.global_dim)
+    for t in range(cfg.target_dim):
+        for name in ("base.output_heads", "mean_heads", "logvar_heads"):
+            lin(f"{name}.{t}", 1, h)
+    return sd
+
+
+def phase_convert(root: Path, data: Path, ens: Path, cfg, dev):
+    """`cli.convert` on a reference directory written on the host (a
+    flagship-width HeteroAlignnRegressor state dict with random weights
+    from a seed, and the fixture's scaler and a conformal record as `.pt`
+    files), then the converted member served through `cli.predict` on the
+    card and on the CPU (one batch of BATCH graphs): kernel 5 2·layers
+    times per batch, the card's means and σ equal the CPU's at the serving
+    tolerance."""
+    import torch
+    from gnnep_tpu_torch.cli import convert as cli_convert
+    from gnnep_tpu_torch.cli import predict as cli_predict
+    from gnnep_tpu_torch.train.artifacts import load_scaler_state
+    ref, conv = root / "reference_pt", root / "converted"
+    ref.mkdir()
+    t0 = time.perf_counter()
+    torch.save(reference_state(np.random.default_rng(SEED + 5), cfg),
+               ref / "model_0.pt")
+    scaler, transformer, _ = load_scaler_state(ens / "scaler_state.npz")
+    raw = {k: torch.from_numpy(np.array(v, np.float32))
+           for k, v in scaler.state_dict().items() if v is not None}
+    raw.update(target_transform="log", log_transform={
+        "means": torch.from_numpy(np.asarray(transformer.means)),
+        "stds": torch.from_numpy(np.asarray(transformer.stds))})
+    torch.save(raw, ref / "scaler_state.pt")
+    torch.save({"q": torch.tensor([0.9, 1.5]), "method": "scaled",
+                "alpha": 0.1, "affine_a": torch.ones(2),
+                "affine_b": torch.zeros(2)}, ref / "conformal.pt")
+    with open(root / "convert.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        n = cli_convert.main(["--reference-dir", str(ref), "--out-dir",
+                              str(conv), "--heads", str(cfg.heads)])
+    convert_s = time.perf_counter() - t0
+    if n != 1:
+        raise AssertionError(f"convert: {n} members converted")
+    preds, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        out = root / f"pred_converted_{device}.json"
+        with open(root / f"cli_converted_{device}.txt", "w") as log, \
+                contextlib.redirect_stdout(log):
+            reset_counts()
+            cli_predict.main(["--mode", "random", "--num-samples",
+                              str(BATCH), "--batch-size", str(BATCH),
+                              "--data-dir", str(data), "--ensemble-dir",
+                              str(conv), "--output-json", str(out),
+                              "--device", device])
+            launches[device] = read_counts()
+        preds[device] = _preds(out)
+    want = 2 * cfg.layers
+    got = launches["cuda"].pop("attn_eproj_fwd")
+    if got != want or any(launches["cuda"].values()):
+        raise AssertionError(f"convert: kernel 5 launched {got} times "
+                             f"(expected {want}), others {launches['cuda']}")
+    (ids_g, mu_g, sig_g), (ids_c, mu_c, sig_c) = preds["cuda"], preds["cpu"]
+    err = max(np.abs(mu_g - mu_c).max(), np.abs(sig_g - sig_c).max())
+    if ids_g != ids_c or not (
+            np.allclose(mu_g, mu_c, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+            and np.allclose(sig_g, sig_c, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+            and np.isfinite(mu_g).all()):
+        raise AssertionError(f"convert: the converted member's card "
+                             f"predictions differ from the CPU's by "
+                             f"{err:.3e}")
+    say("convert", members=n, hidden=cfg.hidden, layers=cfg.layers,
+        heads=cfg.heads, convert_s=f"{convert_s:.2f}", graphs=len(ids_g),
+        kernel="attn_eproj_fwd", kernel_launches=got, rtol=SERVE_RTOL,
+        atol=SERVE_ATOL, max_abs_err=f"{err:.3e}",
+        mu_mean=f"{mu_g.mean():.4f}")
+    return dict(launches=got, convert_s=convert_s, max_abs_err=float(err))
+
+
 def span_config(store_or_none, batches, **kw):
     """The flagship config on the span rung (`conv_impl='fused'`,
     `attn_span=True`) with the span bounds `measure_span64` gives over
@@ -2742,7 +3466,7 @@ def rel_gaps(a, b, before_a, before_b, metrics_a, metrics_b) -> dict:
 
 
 def phase_check_captured(setup, batches, dev, rung: str, dtype: str,
-                         what: str = "captured_step_vs_eager"):
+                         what: str = "captured_step_vs_eager", state=None):
     """The card's captured step against its eager step, on `rung` in
     `dtype`, dropout and jitter off: the captured step takes batch 0 as its
     eager warm-up and batch 1 as its capture and first replay; then its
@@ -2759,7 +3483,11 @@ def phase_check_captured(setup, batches, dev, rung: str, dtype: str,
     to run): there the replay's relative distance from the eager step
     (`rel_gaps`: metrics, and the L2 distance of all gradients, moments and
     updates) must be within twice the larger of two eager steps' own
-    distances from it, the metrics at least within one bf16 unit (2^-7)."""
+    distances from it, the metrics at least within one bf16 unit (2^-7).
+    With `state` (parameters, Adam moments by name and Adam's count, as a
+    resume archive holds them) the steps start from that state instead,
+    written into each step's own tensors with `load_state` (the captured
+    step's after its capture) at the trainer's LR groups."""
     import torch
     from gnnep_tpu_torch.models.alignn import init_alignn
     from gnnep_tpu_torch.train.loop import (GraphTrainStep, TrainHyper,
@@ -2774,17 +3502,22 @@ def phase_check_captured(setup, batches, dev, rung: str, dtype: str,
     for b in batches[:2]:
         card(b, None, CHECK_LR_MEAN, CHECK_LR_SIGMA)
     init = init_alignn(np.random.default_rng(SEED + 98), cfg)
-    with torch.no_grad():
-        for p, q in zip(card.params, init.parameters()):
-            p.copy_(q)
-        for m in card.state.mu + card.state.nu:
-            m.zero_()
-        card.state.count.zero_()
+    if state is not None:
+        card.load_state(**state)
+    else:
+        with torch.no_grad():
+            for p, q in zip(card.params, init.parameters()):
+                p.copy_(q)
+            for m in card.state.mu + card.state.nu:
+                m.zero_()
+            card.state.count.zero_()
     f32 = dtype == "float32"
     steps = {"card": card}
     for k in ("ref", "ref2") if f32 else ("ref", "ref2", "ref3"):
         steps[k] = TrainStep(init_alignn(np.random.default_rng(SEED + 98),
                                          cfg).to(dev), hyper, t.means, t.stds)
+        if state is not None:
+            steps[k].load_state(**state)
     before = {k: [p.detach().cpu().clone() for p in s.params]
               for k, s in steps.items()}
     metrics = {}
@@ -2824,7 +3557,8 @@ def phase_check_captured(setup, batches, dev, rung: str, dtype: str,
             raise AssertionError(f"captured vs eager step ({rung}, {dtype}): "
                                  f"{bad} beyond twice the eager steps' own "
                                  f"spread {spread}")
-        verdict = dict(limit="2x_eager_spread", adam_count=1,
+        verdict = dict(limit="2x_eager_spread",
+                       adam_count=int(card.state.count),
                        loss_sum=f"{metrics['card'][0]:.6f}")
     card.close()
     say("check", rung=rung, dtype=dtype, what=what, **verdict,
@@ -3694,6 +4428,13 @@ def main() -> int:
                                    "kv+e")}
         featurized = phase_featurize(root, ens, cfg.layers)
         knn = phase_knn(root, data, cfg.layers, setup, train_batches, dev)
+        resumed = phase_resume(root, data, cfg.layers, setup, train_batches,
+                               dev)
+        isolated = phase_isolation(root, data, cfg.layers, setup,
+                                   root / "trained_float32")
+        profiled = phase_profile(root, data, cfg.layers)
+        bundled = phase_bundle(root, data, ens, rung_ens, cfg, batches, dev)
+        converted = phase_convert(root, data, ens, cfg, dev)
         rung_train = {rung: phase_train_rung(root, data, cfg.layers, rung)
                       for rung in RUNGS}
         span_cfg, span_forwards = phase_span_forward(ens, batches, dev)
@@ -3754,6 +4495,15 @@ def main() -> int:
     kernels[0]["launches_knn"] = knn["counts"]["attn_eproj_fwd"]
     for rec in kernels[1:3]:
         rec["launches_knn"] = knn["counts"][rec["name"]]
+    # the f32 runs of this slice's paths: the resumed member, the member
+    # processes (their own counts), the traced first epoch, the bundles and
+    # the converted member served
+    for rec in kernels[:3]:
+        rec["launches_resume"] = resumed["float32"]["counts"][rec["name"]]
+        rec["launches_isolation"] = isolated["launches"][rec["name"]]
+        rec["launches_profile"] = profiled["launches"][rec["name"]]
+    kernels[0]["launches_bundle"] = bundled["eproj_float32"]["launches"]
+    kernels[0]["launches_convert"] = converted["launches"]
     for rung, spec in RUNGS.items():
         fwd = record(spec["fwd"], rung_cases[spec["fwd"]],
                      rung_serve[rung]["float32"],
@@ -3762,6 +4512,7 @@ def main() -> int:
         if rung in evaluated:
             fwd["launches_evaluate"] = \
                 evaluated[rung]["launches"]["float32"]
+        fwd["launches_bundle"] = bundled[f"{rung}_float32"]["launches"]
         kernels += [fwd, record(spec["bwd"], rung_cases[spec["bwd"]],
                                 rung_train[rung]["counts"][spec["bwd"]], None,
                                 f"train_{rung}")]
@@ -3791,6 +4542,10 @@ def main() -> int:
         "forward": forward_times,
         "evaluate": evaluated, "featurize": featurized,
         "knn": {k: v for k, v in knn.items() if k != "counts"},
+        "resume": {d: {k: v for k, v in r.items() if k != "counts"}
+                   for d, r in resumed.items()},
+        "isolation": isolated, "profile": profiled, "bundle": bundled,
+        "convert": converted,
         "span": {"edge_span64": span_cfg.edge_span64,
                  "lg_span64": span_cfg.lg_span64,
                  "serve_launches_attn_eproj_fwd": span_serve,

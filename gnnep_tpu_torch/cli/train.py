@@ -76,8 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--conformal-alpha", type=float, default=0.1)
     p.add_argument("--conformal-method", choices=["scaled", "absolute"],
                    default="scaled")
-    p.add_argument("--enable-density-weighting", action="store_true",
-                   help=_NOT_PORTED + "raises")
+    p.add_argument("--enable-density-weighting", action="store_true")
     p.add_argument("--disable-density-weighting", action="store_true",
                    help="Explicitly disable KNN density weighting (default state)")
     p.add_argument("--weight-warmup-epochs", type=int, default=8)
@@ -97,8 +96,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "are assembled in-process (see --pack-workers)")
     p.add_argument("--pack-workers", type=int, default=4,
                    help="Threads for epoch batch assembly (1 = serial)")
-    p.add_argument("--save-embeddings", action="store_true",
-                   help=_NOT_PORTED + "raises")
+    p.add_argument("--save-embeddings", action="store_true")
     p.add_argument("--member-parallel",
                    choices=["sequential", "vmap", "shard"],
                    default="sequential",
@@ -112,7 +110,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help=_NOT_PORTED + "values > 1 raise")
     p.add_argument("--member-isolation", choices=["none", "process"],
                    default="none",
-                   help=_NOT_PORTED + "'process' raises")
+                   help="'process' trains each member in a subprocess "
+                        "(python -m gnnep_tpu_torch.train.member_proc): "
+                        "what a member holds on the card is freed when its "
+                        "process ends")
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                    default="float32")
     p.add_argument("--conv-impl", choices=["table", "fused", "coo"],
@@ -149,11 +150,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "their metrics back once (0/1 = read after every "
                         "step)")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help=_NOT_PORTED + "values > 0 raise")
+                   help="Save mid-training resume state every N epochs (0=off)")
     p.add_argument("--resume", action="store_true",
-                   help=_NOT_PORTED + "raises")
+                   help="Resume member training from saved resume state")
     p.add_argument("--profile-dir", default="",
-                   help=_NOT_PORTED + "a non-empty value raises")
+                   help="Write a torch.profiler trace (Chrome trace JSON) of "
+                        "the first epoch here")
     p.add_argument("--batch-quantile", type=float, default=0.95)
     p.add_argument("--batch-slack", type=float, default=1.15)
     p.add_argument("--quiet", action="store_true")

@@ -22,6 +22,11 @@ function's [heads, E] arguments. A tensor on the CPU takes the plain
 versions; a CUDA tensor launches the kernels or raises. The kernels share
 kernels 3 and 4's layout (`csrc/attn_kv.cuh`) and planner
 (`kv_layout.kv_plan`), with thresholds of their own (`aggregate_plan`).
+
+The forward is also the custom op `gnnep_torch::softmax_aggregate_fwd`
+(its CPU kernel the plain version, its CUDA kernel the launch, and a shape
+function), so that `torch.export` traces it (`infer/bundle.py`);
+registering it builds nothing.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.library import custom_op
 
 from ..segment import segment_max, segment_sum
 from . import build
@@ -331,6 +337,29 @@ def aggregate_empty_cuda(v: torch.Tensor, n: int, *, heads: int,
         raise RuntimeError(f"empty launch failed with CUDA error {rc}")
 
 
+@custom_op("gnnep_torch::softmax_aggregate_fwd", mutates_args=(),
+           device_types="cpu",
+           schema="(Tensor logits, Tensor? scale, Tensor v, Tensor row_ptr, "
+                  "Tensor dst, int heads) -> (Tensor, Tensor, Tensor)")
+def softmax_aggregate_fwd(logits, scale, v, row_ptr, dst, heads):
+    """Kernel 1 as an op → (out f32 [N, H], max, denom [N, heads]): the
+    plain version on the CPU, the kernel on the card."""
+    return aggregate_plain(logits, scale, v, row_ptr, dst, heads=heads)
+
+
+@softmax_aggregate_fwd.register_kernel("cuda")
+def _softmax_aggregate_fwd_cuda(logits, scale, v, row_ptr, dst, heads):
+    return aggregate_cuda(logits, scale, v, row_ptr, heads=heads)
+
+
+@softmax_aggregate_fwd.register_fake
+def _softmax_aggregate_fwd_fake(logits, scale, v, row_ptr, dst, heads):
+    n = row_ptr.shape[0] - 1
+    f32 = dict(dtype=torch.float32)
+    return (v.new_empty((n, v.shape[1]), **f32),
+            v.new_empty((n, heads), **f32), v.new_empty((n, heads), **f32))
+
+
 class CsrSoftmaxAggregate(torch.autograd.Function):
     """The softmax-aggregate as one differentiable op: forward kernel 1 and
     backward kernel 2 on the card, their plain versions on the CPU. Returns
@@ -338,12 +367,8 @@ class CsrSoftmaxAggregate(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, scale, v, row_ptr, dst, heads):
-        if v.device.type == "cpu":
-            out, mx, den = aggregate_plain(logits, scale, v, row_ptr, dst,
-                                           heads=heads)
-        else:
-            out, mx, den = aggregate_cuda(logits, scale, v, row_ptr,
-                                          heads=heads)
+        out, mx, den = softmax_aggregate_fwd(logits, scale, v, row_ptr, dst,
+                                             heads)
         ctx.save_for_backward(logits, scale, v, row_ptr, dst, mx, den)
         ctx.heads = heads
         ctx.mark_non_differentiable(mx, den)
@@ -371,11 +396,13 @@ def fused_aggregate(logits: torch.Tensor, v_j: torch.Tensor,
     CSR pointers of the sorted `dst` [E]. `scale` [E, heads] multiplies α
     after normalisation (dropout; None: no scale). Returns out f32 [N, H],
     plus (max, denom) [N, heads] with `return_stats`; differentiable in
-    logits and v_j. The dummy row's (n−1) output is unspecified, and its
-    edges carry no gradient."""
-    res = CsrSoftmaxAggregate.apply(
-        logits.contiguous(), None if scale is None else scale.contiguous(),
-        v_j.contiguous(), row_ptr, dst, heads)
+    logits and v_j (without a gradient to take, the op alone runs). The
+    dummy row's (n−1) output is unspecified, and its edges carry no
+    gradient."""
+    args = (logits.contiguous(), None if scale is None else scale.contiguous(),
+            v_j.contiguous(), row_ptr, dst, heads)
+    res = (CsrSoftmaxAggregate.apply(*args) if build.needs_grad(logits, v_j)
+           else softmax_aggregate_fwd(*args))
     return res if return_stats else res[0]
 
 

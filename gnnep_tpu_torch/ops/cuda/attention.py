@@ -13,6 +13,11 @@ per head over the CSR segments of a dst-sorted edge arena, with `mask2`
 excluding edges before the softmax; differentiable in q, k_e and v_e. A
 tensor on the CPU takes the plain versions; a CUDA tensor launches the
 kernels or raises.
+
+The forward is also the custom op `gnnep_torch::attn_fwd` (its CPU kernel
+the plain version, its CUDA kernel the launch, and a shape function), so
+that `torch.export` traces it (`infer/bundle.py`); registering it builds
+nothing.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.library import custom_op
 
 from ..segment import segment_sum
 from . import build
@@ -310,6 +316,29 @@ def attention_empty_cuda(q: torch.Tensor, k_e: torch.Tensor,
         raise RuntimeError(f"empty launch failed with CUDA error {rc}")
 
 
+@custom_op("gnnep_torch::attn_fwd", mutates_args=(), device_types="cpu",
+           schema="(Tensor q, Tensor k_e, Tensor v_e, Tensor scale_t, "
+                  "Tensor mask2, Tensor row_ptr, Tensor dst, int heads) -> "
+                  "(Tensor, Tensor, Tensor)")
+def attn_fwd(q, k_e, v_e, scale_t, mask2, row_ptr, dst, heads):
+    """Kernel 3 as an op → (out f32 [N, H], max, denom [N, heads]): the
+    plain version on the CPU, the kernel on the card."""
+    return attention_plain(q, k_e, v_e, scale_t, mask2, dst, heads=heads)
+
+
+@attn_fwd.register_kernel("cuda")
+def _attn_fwd_cuda(q, k_e, v_e, scale_t, mask2, row_ptr, dst, heads):
+    return attention_cuda(q, k_e, v_e, scale_t, mask2, row_ptr, heads=heads)
+
+
+@attn_fwd.register_fake
+def _attn_fwd_fake(q, k_e, v_e, scale_t, mask2, row_ptr, dst, heads):
+    n = q.shape[0]
+    f32 = dict(dtype=torch.float32)
+    return (q.new_empty((n, q.shape[1]), **f32),
+            q.new_empty((n, heads), **f32), q.new_empty((n, heads), **f32))
+
+
 class CsrAttention(torch.autograd.Function):
     """The attention as one differentiable op: forward kernel 3 and backward
     kernel 4 on the card, their plain versions on the CPU. Returns (out f32,
@@ -317,12 +346,8 @@ class CsrAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k_e, v_e, scale_t, mask2, row_ptr, dst, heads):
-        if q.device.type == "cpu":
-            out, mx, den = attention_plain(q, k_e, v_e, scale_t, mask2, dst,
-                                           heads=heads)
-        else:
-            out, mx, den = attention_cuda(q, k_e, v_e, scale_t, mask2,
-                                          row_ptr, heads=heads)
+        out, mx, den = attn_fwd(q, k_e, v_e, scale_t, mask2, row_ptr, dst,
+                                heads)
         ctx.save_for_backward(q, k_e, v_e, scale_t, mask2, row_ptr, dst, mx,
                               den)
         ctx.heads = heads
@@ -354,8 +379,9 @@ def fused_attention(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
     `dst` [E]. `scale_t` [heads, E] multiplies α after normalisation
     (dropout; default ones); `mask_e` [E] excludes edges before the softmax
     (default none). Returns out f32 [N, H], plus (max, denom) [N, heads]
-    with `return_stats`; differentiable in q, k_e and v_e. The dummy row's
-    (n−1) output is unspecified, and its edges carry no gradient."""
+    with `return_stats`; differentiable in q, k_e and v_e (without a
+    gradient to take, the op alone runs). The dummy row's (n−1) output is
+    unspecified, and its edges carry no gradient."""
     e_total = k_e.shape[0]
     if scale_t is None:
         scale_t = torch.ones((heads, e_total), dtype=torch.float32,
@@ -363,7 +389,8 @@ def fused_attention(q: torch.Tensor, k_e: torch.Tensor, v_e: torch.Tensor,
     mask2 = (torch.ones(e_total, dtype=torch.float32, device=k_e.device)
              if mask_e is None
              else mask_e.to(torch.float32).reshape(e_total).contiguous())
-    res = CsrAttention.apply(q.contiguous(), k_e.contiguous(),
-                             v_e.contiguous(), scale_t.contiguous(), mask2,
-                             row_ptr, dst, heads)
+    args = (q.contiguous(), k_e.contiguous(), v_e.contiguous(),
+            scale_t.contiguous(), mask2, row_ptr, dst, heads)
+    res = (CsrAttention.apply(*args) if build.needs_grad(q, k_e, v_e)
+           else attn_fwd(*args))
     return res if return_stats else res[0]

@@ -12,6 +12,11 @@ Counterpart of `fused_attention_eproj` / `csr_attention_eproj` in
 per head over the CSR segments of a dst-sorted edge arena, differentiable in
 q, kv, ea and W. A tensor on the CPU takes the plain versions; a CUDA tensor
 launches the kernels or raises.
+
+The forward is also the custom op `gnnep_torch::attn_eproj_fwd` (its CPU
+kernel the plain version, its CUDA kernel the launch, and a shape function),
+so that `torch.export` traces it (`infer/bundle.py`); registering it builds
+nothing.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.library import custom_op
 
 from . import build
 from .aggregate import softmax_aggregate_edges
@@ -285,6 +291,34 @@ def attention_eproj_bwd_cuda(q: torch.Tensor, kv: torch.Tensor,
     return dq, dkv, dea, dw
 
 
+@custom_op("gnnep_torch::attn_eproj_fwd", mutates_args=(),
+           device_types="cpu",
+           schema="(Tensor q, Tensor kv, Tensor ea, Tensor w_edge, "
+                  "Tensor scale_t, Tensor mask2, Tensor row_ptr, Tensor dst, "
+                  "int heads) -> (Tensor, Tensor, Tensor)")
+def attn_eproj_fwd(q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, heads):
+    """Kernel 5 as an op → (out f32 [N, H], max, denom [N, heads]): the
+    plain version on the CPU, the kernel on the card."""
+    return attention_eproj_plain(q, kv, ea, w_edge, scale_t, mask2, dst,
+                                 heads=heads)
+
+
+@attn_eproj_fwd.register_kernel("cuda")
+def _attn_eproj_fwd_cuda(q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst,
+                         heads):
+    return attention_eproj_cuda(q, kv, ea, w_edge, scale_t, mask2, row_ptr,
+                                dst, heads=heads)
+
+
+@attn_eproj_fwd.register_fake
+def _attn_eproj_fwd_fake(q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst,
+                         heads):
+    n = q.shape[0]
+    f32 = dict(dtype=torch.float32)
+    return (q.new_empty((n, q.shape[1]), **f32),
+            q.new_empty((n, heads), **f32), q.new_empty((n, heads), **f32))
+
+
 class EprojAttention(torch.autograd.Function):
     """The eproj attention as one differentiable op: forward kernel 5 and
     backward kernel 6 on the card, their plain versions on the CPU. Returns
@@ -292,13 +326,8 @@ class EprojAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, kv, ea, w_edge, scale_t, mask2, row_ptr, dst, heads):
-        if q.device.type == "cpu":
-            out, mx, den = attention_eproj_plain(q, kv, ea, w_edge, scale_t,
-                                                 mask2, dst, heads=heads)
-        else:
-            out, mx, den = attention_eproj_cuda(q, kv, ea, w_edge, scale_t,
-                                                mask2, row_ptr, dst,
-                                                heads=heads)
+        out, mx, den = attn_eproj_fwd(q, kv, ea, w_edge, scale_t, mask2,
+                                      row_ptr, dst, heads)
         ctx.save_for_backward(q, kv, ea, w_edge, scale_t, mask2, row_ptr,
                               dst, mx, den)
         ctx.heads = heads
@@ -334,8 +363,9 @@ def fused_attention_eproj(q: torch.Tensor, kv: torch.Tensor, ea: torch.Tensor,
     pointers of the sorted `dst` [E]. `scale_t` [heads, E] multiplies α after
     normalisation (dropout; default ones); `mask_e` [E] excludes edges
     (default none). Returns out f32 [N, H], plus (max, denom) [N, heads] with
-    `return_stats`; differentiable in q, kv, ea and w_edge. The dummy row's
-    (n−1) output is unspecified, and its edges carry no gradient."""
+    `return_stats`; differentiable in q, kv, ea and w_edge (without a
+    gradient to take, the op alone runs). The dummy row's (n−1) output is
+    unspecified, and its edges carry no gradient."""
     e_total = kv.shape[0]
     if scale_t is None:
         scale_t = torch.ones((heads, e_total), dtype=torch.float32,
@@ -343,6 +373,9 @@ def fused_attention_eproj(q: torch.Tensor, kv: torch.Tensor, ea: torch.Tensor,
     mask2 = (torch.ones(e_total, dtype=torch.float32, device=kv.device)
              if mask_e is None
              else mask_e.to(torch.float32).reshape(e_total).contiguous())
-    res = EprojAttention.apply(q, kv, ea, w_edge, scale_t.contiguous(), mask2,
-                               row_ptr, dst, heads)
+    args = (q, kv, ea, w_edge, scale_t.contiguous(), mask2, row_ptr, dst,
+            heads)
+    res = (EprojAttention.apply(*args)
+           if build.needs_grad(q, kv, ea, w_edge)
+           else attn_eproj_fwd(*args))
     return res if return_stats else res[0]

@@ -127,3 +127,10 @@ def check_card_tensors(tensors: Dict[str, torch.Tensor]) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return device
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would take a gradient through any of `tensors`:
+    where not, a differentiable op calls its forward op alone (which is
+    what `torch.export` traces in an eval forward)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)

@@ -11,7 +11,7 @@ replay: the counts go on saying how often each kernel ran on the card.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, TypeVar
+from typing import Callable, Dict, Optional, TypeVar
 
 import torch
 
@@ -33,6 +33,13 @@ T = TypeVar("T")
 
 def _read():
     return [getattr(mod, attr) for mod, attr in _COUNTERS]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count in this process, keyed
+    '<module>.<attribute>' (e.g. 'attention_eproj.bwd_launches')."""
+    return {f"{mod.__name__.rsplit('.', 1)[1]}.{attr}": getattr(mod, attr)
+            for mod, attr in _COUNTERS}
 
 
 class CountedGraph:

@@ -213,6 +213,8 @@ def csr_gather_ordered(x: torch.Tensor, idx: torch.Tensor, order: torch.Tensor,
     """`x[idx]` [E, ·] with the segment-sum backward; `order` [E] and
     `seg_starts` [N] int32 are the packer's source-sorted CSR index
     (`GraphBatch.edge_src_order` / `edge_src_starts`)."""
+    if not build.needs_grad(x):
+        return x.index_select(0, idx)
     return CsrGatherOrdered.apply(x, idx, order, seg_starts)
 
 
@@ -220,4 +222,6 @@ def csr_gather(x: torch.Tensor, idx: torch.Tensor,
                seg_starts: torch.Tensor) -> torch.Tensor:
     """`x[idx]` [E, ·] with the segment-sum backward, for the arena's own
     sort key: the gather of q by dst, with `seg_starts` = row_ptr[:-1]."""
+    if not build.needs_grad(x):
+        return x.index_select(0, idx)
     return CsrGatherOrdered.apply(x, idx, None, seg_starts)

@@ -8,7 +8,10 @@ an ensemble written by either package loads in the other:
   `[in, out]`, plus `config_json`;
 - `scaler_state.npz`: the feature scaler's arrays, `log_means`/`log_stds`
   and `meta_json`;
-- `conformal.json`: the conformal quantiles and the affine debias.
+- `conformal.json`: the conformal quantiles and the affine debias;
+- `resume_member_{seed}.npz`: a member's mid-training state
+  (`save_pytree`), `leaf_{i:05d}` arrays plus `meta_json`, the JAX
+  package's container with the port's leaves (`train.member`).
 """
 from __future__ import annotations
 
@@ -132,6 +135,54 @@ def load_conformal(path: str | Path) -> Dict:
         "affine_a": np.asarray(raw["affine_a"], dtype=np.float64),
         "affine_b": np.asarray(raw["affine_b"], dtype=np.float64),
     }
+
+
+def save_pytree(path: str | Path, leaves: Sequence, meta: Optional[Dict] = None
+                ) -> None:
+    """Persist arrays (tensors or numpy) in order plus a JSON metadata blob,
+    written to `<path>.tmp.npz` and then moved over `path`: the mid-training
+    resume state."""
+    payload = {f"leaf_{i:05d}": (leaf.detach().cpu().numpy()
+                                 if isinstance(leaf, torch.Tensor)
+                                 else np.asarray(leaf))
+               for i, leaf in enumerate(leaves)}
+    payload["meta_json"] = np.array(json.dumps(meta or {}, default=float))
+    tmp = Path(str(path) + ".tmp.npz")  # np.savez appends .npz otherwise
+    np.savez(tmp, **payload)
+    tmp.replace(path)
+
+
+def load_pytree_meta(path: str | Path) -> Dict:
+    """Only the JSON metadata of a `save_pytree` archive (empty for an
+    archive without it), to check the layout before loading."""
+    with np.load(path, allow_pickle=False) as data:
+        if "meta_json" not in data.files:
+            return {}
+        return json.loads(str(data["meta_json"]))
+
+
+def count_pytree_leaves(path: str | Path) -> int:
+    with np.load(path, allow_pickle=False) as data:
+        return sum(1 for k in data.files if k.startswith("leaf_"))
+
+
+def load_pytree(path: str | Path, template: Sequence
+                ) -> Tuple[List[np.ndarray], Dict]:
+    """The arrays of a `save_pytree` archive, each in the type of the
+    template's array at its place, and the metadata. Raises ValueError
+    where the counts differ."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(str(data["meta_json"]))
+        leaves = [data[k] for k in sorted(k for k in data.files
+                                          if k.startswith("leaf_"))]
+    if len(leaves) != len(template):
+        raise ValueError(f"{path}: {len(leaves)} leaves != template "
+                         f"{len(template)}")
+    dtypes = [torch.empty((), dtype=t.dtype).numpy().dtype
+              if isinstance(t, torch.Tensor) else np.asarray(t).dtype
+              for t in template]
+    return [np.asarray(leaf, dtype=dt) for leaf, dt in zip(leaves, dtypes)], \
+        meta
 
 
 def member_paths(save_dir: str | Path) -> List[Path]:

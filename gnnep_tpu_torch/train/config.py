@@ -2,10 +2,8 @@
 field, so a configuration means the same in both packages.
 
 Fields that select a path this port does not run yet (`member_parallel`
-vmap/shard, `data_shards`/`edge_shards` > 1, `giant_graphs='boundary'`,
-`member_isolation='process'`, KNN density weighting, `save_embeddings`,
-`resume`/`checkpoint_every`, `profile_dir`) make `train.ensemble` raise,
-naming ROADMAP.md. `prng_impl` and `flat_opt` are TPU stream and layout
+vmap/shard, `data_shards`/`edge_shards` > 1, `giant_graphs='boundary'`)
+make `train.ensemble` raise, naming ROADMAP.md. `prng_impl` and `flat_opt` are TPU stream and layout
 choices; the port accepts and ignores them."""
 from __future__ import annotations
 
@@ -136,7 +134,7 @@ class TrainConfig:
     # readback otherwise gate throughput on remote runtimes); the epoch's
     # remainder (< K batches) runs per-step. 0/1 disables.
     scan_steps: int = 8
-    profile_dir: str = ""                # jax.profiler trace output (first epoch)
+    profile_dir: str = ""                # torch.profiler trace output (first epoch)
     save_embeddings: bool = False
     batch_quantile: float = 0.95
     batch_slack: float = 1.15

@@ -9,11 +9,21 @@ hidden/dropout/LR overrides, mixture aggregation on the calibration split,
 affine debias, scaled conformal quantiles, and the artifacts `model_{i}.npz`,
 `scaler_state.npz`, `conformal.json` and `train_summary.json`, in the JAX
 package's formats.
+
+With `resume`, a member whose `model_{i}.npz` exists is not trained again
+(the mid-training resume inside `train_member` covers partial members).
+`member_isolation='process'` trains each member in its own
+`python -m gnnep_tpu_torch.train.member_proc` process, which derives the
+same member from `train_cfg.json`; the parent touches no device before the
+members are done.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import subprocess
+import sys
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -27,7 +37,8 @@ from ..data.store import GraphStore
 from ..data.transforms import FeatureScaler, LogTransformer
 from ..models.alignn import Alignn, AlignnConfig, DeviceBatch, alignn_embed
 from ..utils.device import resolve_device
-from .artifacts import save_conformal, save_member, save_scaler_state
+from .artifacts import (load_member, save_conformal, save_member,
+                        save_scaler_state)
 from .bins import compute_bin_statistics
 from .calibrate import (apply_conformal_intervals, conformal_calibration,
                         ensemble_mixture, fit_affine_debias)
@@ -41,9 +52,9 @@ N_SG_ONE_HOT = 230
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for every option that selects a path the
-    port does not run yet, on any device; none of them runs something else
-    in its place. The rung flags (`--no-attn-fused`, `--no-attn-eproj`) run
-    their own kernels."""
+    port does not run yet (the multi-device group), on any device; none of
+    them runs something else in its place. The rung flags
+    (`--no-attn-fused`, `--no-attn-eproj`) run their own kernels."""
     unported = []
     if cfg.member_parallel in ("vmap", "shard"):
         unported.append(f"--member-parallel {cfg.member_parallel}")
@@ -52,12 +63,6 @@ def check_supported(cfg: TrainConfig) -> None:
                         f"{cfg.edge_shards}")
     if cfg.giant_graphs == "boundary":
         unported.append("--giant-graphs boundary")
-    if cfg.member_isolation == "process":
-        unported.append("--member-isolation process")
-    if cfg.resume or cfg.checkpoint_every > 0:
-        unported.append("--resume / --checkpoint-every")
-    if cfg.profile_dir:
-        unported.append("--profile-dir")
     if unported:
         raise NotImplementedError(
             "not ported to gnnep_tpu_torch yet (see ROADMAP.md): "
@@ -187,13 +192,60 @@ def member_plan(cfg: TrainConfig, setup: TrainingSetup, i: int):
     return seed_i, fold_idx, train_i, holdout, mc, member_cfg
 
 
+# the line a member process prints last, with the optimizer steps it took
+_STEPS_LINE = re.compile(r"^\[member_proc (\d+)\] optimizer_steps=(\d+)$")
+
+
+def write_member_cfg(cfg: TrainConfig, save_dir: Path) -> Path:
+    """`train_cfg.json` for the member processes, its path-valued fields
+    made absolute (a child runs from the package's root)."""
+    cfg_dict = dataclasses.asdict(cfg)
+    for f in ("data_dir", "save_dir", "profile_dir"):
+        if cfg_dict.get(f):
+            cfg_dict[f] = str(Path(cfg_dict[f]).resolve())
+    path = save_dir / "train_cfg.json"
+    path.write_text(json.dumps(cfg_dict))
+    return path
+
+
+def run_member_process(cfg_path: Path, i: int, device: torch.device) -> int:
+    """Train member i in `python -m gnnep_tpu_torch.train.member_proc`,
+    with the child's output streamed through this process's; returns the
+    optimizer steps the child reports. A child that fails raises."""
+    pkg_root = Path(__file__).resolve().parents[2]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gnnep_tpu_torch.train.member_proc",
+         str(cfg_path), str(i), device.type],
+        cwd=pkg_root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, bufsize=1)
+    steps = None
+    for line in proc.stdout:
+        m = _STEPS_LINE.match(line.rstrip("\n"))
+        if m and int(m.group(1)) == i:
+            steps = int(m.group(2))
+        else:
+            print(line, end="", flush=True)
+    rc = proc.wait()
+    if rc != 0 or steps is None:
+        raise RuntimeError(f"member {i} subprocess failed (rc={rc}"
+                           + (", no optimizer_steps line)" if rc == 0
+                              else ")"))
+    return steps
+
+
 def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
                  device=None) -> Dict:
     """Full training pipeline; returns the summary dict (test stats, and the
-    optimizer steps each member took). `device` None means CUDA, which must
-    then be available."""
+    optimizer steps each member took in this run: 0 for a member skipped on
+    resume). `device` None means CUDA, which must then be available."""
     dev = resolve_device(device)
     check_supported(cfg)
+    use_proc = cfg.member_isolation == "process"
+    if use_proc and store is not None:
+        raise ValueError(
+            "member_isolation='process' reloads the dataset from "
+            "cfg.data_dir in each member subprocess; an in-memory store "
+            "argument cannot be forwarded. Pass store=None.")
     t_start = time.time()
     setup = prepare(cfg, store)
     s = setup.store
@@ -217,19 +269,40 @@ def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
         print(f"[Weights] freq-gamma={cfg.freq_gamma}: bin weights over "
               f"{len(setup.train_idx)} train samples | "
               f"mean={tw.mean():.3f} min={tw.min():.3f} max={tw.max():.3f}")
+    cfg_path = write_member_cfg(cfg, save_dir) if use_proc else None
     for i in range(cfg.ensemble_size):
+        member_path = save_dir / f"model_{i}.npz"
+        if cfg.resume and member_path.exists():
+            # a member's final artifact exists only after it finished:
+            # skipping it is the member-level resume
+            try:
+                members.append(load_member(member_path, "cpu"))
+                steps.append(0)
+                if cfg.verbose:
+                    print(f"Member {i + 1}/{cfg.ensemble_size}: loaded "
+                          f"finished checkpoint {member_path.name}; "
+                          "skipping training (resume)")
+                continue
+            except Exception as exc:
+                print(f"Member {i}: existing {member_path.name} "
+                      f"unreadable ({exc}); retraining")
         (seed_i, fold_idx, train_i, holdout, mc,
          member_cfg) = member_plan(cfg, setup, i)
         if cfg.verbose:
             print(f"Training ensemble member {i + 1}/{cfg.ensemble_size} "
                   f"(fold {fold_idx + 1}/{num_folds}) with seed {seed_i} | "
-                  f"train={len(train_i)} fold_val={len(holdout)}")
-        model, _, n_steps = train_member(
-            s, member_cfg, mc, setup.transformer, setup.budget, seed_i,
-            train_i, holdout, freq_weights=freq_weights, device=dev)
-        save_member(save_dir / f"model_{i}.npz", model)
+                  f"train={len(train_i)} fold_val={len(holdout)}",
+                  flush=True)
+        if use_proc:
+            steps.append(run_member_process(cfg_path, i, dev))
+            model = load_member(member_path, "cpu")
+        else:
+            model, _, n_steps = train_member(
+                s, member_cfg, mc, setup.transformer, setup.budget, seed_i,
+                train_i, holdout, freq_weights=freq_weights, device=dev)
+            save_member(member_path, model)
+            steps.append(n_steps)
         members.append(model)
-        steps.append(n_steps)
 
     dims = {"node_dim": s.node_dim, "edge_dim": s.edge_dim,
             "angle_dim": s.angle_dim, "global_scalar_dim": s.global_scalar_dim,

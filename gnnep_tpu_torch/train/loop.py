@@ -263,6 +263,7 @@ class TrainStep:
         self.model = model
         self.hyper = hyper
         names, params = zip(*model.named_parameters())
+        self.names = list(names)
         self.params = list(params)
         smask = sigma_mask(model)
         self.is_sigma = [smask[n] for n in names]
@@ -280,6 +281,26 @@ class TrainStep:
         captured program (a replay reads them where they are)."""
         self.lr_mean.fill_(lr_mean)
         self.lr_sigma.fill_(lr_sigma)
+
+    def read_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The step's own tensors by parameter name, not copies:
+        {'params', 'mu', 'nu'} name → tensor, and 'count' {'count': 0-d}."""
+        return {"params": dict(zip(self.names, self.params)),
+                "mu": dict(zip(self.names, self.state.mu)),
+                "nu": dict(zip(self.names, self.state.nu)),
+                "count": {"count": self.state.count}}
+
+    @torch.no_grad()
+    def load_state(self, params: Dict[str, object], mu: Dict[str, object],
+                   nu: Dict[str, object], count: int) -> None:
+        """Write parameters, Adam moments (each by parameter name, arrays or
+        tensors) and Adam's count into the step's own tensors with `copy_`:
+        a captured step reads them where they are, so nothing is rebound."""
+        for group, values in ((self.params, params), (self.state.mu, mu),
+                              (self.state.nu, nu)):
+            for name, t in zip(self.names, group):
+                t.copy_(torch.as_tensor(values[name]))
+        self.state.count.fill_(int(count))
 
     def _step(self, batch: DeviceBatch,
               generator: Optional[torch.Generator]) -> torch.Tensor:

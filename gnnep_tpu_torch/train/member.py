@@ -14,11 +14,19 @@ thread, so the draw order is that of a synchronous loop. Per-sample loss
 weights (inverse frequency, KNN density, or both multiplied) are grafted
 onto the packed batches' `weight` field, which reaches the captured step
 through its static buffers (`DeviceBatch.copy_from`).
+
+Mid-training resume (`checkpoint_every`, `resume`): every N epochs the
+member's state goes to `resume_member_{seed}.npz` (`RESUME_LAYOUT`), and a
+resumed member writes it back into its step's own tensors and its
+generator, so it goes on as the uninterrupted run would have; as in the
+JAX package, KNN weights are not saved (a resumed member recomputes them
+at its first eligible epoch), and the file goes when the member finishes.
 """
 from __future__ import annotations
 
 import math
 import time
+from pathlib import Path
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
@@ -28,7 +36,10 @@ import torch
 from ..data.batching import BatchBudget, epoch_batches
 from ..data.store import GraphStore
 from ..data.transforms import LogTransformer
-from ..models.alignn import Alignn, AlignnConfig, init_alignn
+from ..models.alignn import Alignn, AlignnConfig, init_alignn, leaf_names
+from ..utils.profiling import ThroughputMeter, maybe_trace
+from .artifacts import (count_pytree_leaves, load_pytree, load_pytree_meta,
+                        save_pytree)
 from .config import TrainConfig
 from .knn_weights import compute_knn_weights
 from .loop import (TrainHyper, collect_predictions, cosine_lr, make_forward,
@@ -36,6 +47,11 @@ from .loop import (TrainHyper, collect_predictions, cosine_lr, make_forward,
 from .metrics import eval_metrics
 
 _GRACE_EPOCHS = 5  # reference warmup_epochs for early stopping (train.py:1561)
+# the resume archive's leaves, after the JAX package's meta keys: the
+# parameters, the best parameters, Adam's mu and nu (each in the
+# checkpoint's leaf order), Adam's count, then the member generator's state
+# (whose size depends on the device type, hence the suffix)
+RESUME_LAYOUT = "torch:params,best,mu,nu,count,generator:v1"
 
 
 def _fmt(v: float) -> str:
@@ -202,6 +218,40 @@ def _metric_sums(ms) -> np.ndarray:
     return torch.stack([f.sum() for f in fields]).double().cpu().numpy()
 
 
+def resume_path(cfg: TrainConfig, member_seed: int) -> Path:
+    return Path(cfg.save_dir) / f"resume_member_{member_seed}.npz"
+
+
+def _layout(device: torch.device) -> str:
+    return f"{RESUME_LAYOUT}:{device.type}"
+
+
+def _resume_leaves(step, names: List[str], best_state, generator) -> list:
+    """The archive's leaves (`RESUME_LAYOUT`) of the step's current state."""
+    st = step.read_state()
+    best = best_state if best_state is not None else st["params"]
+    return ([st["params"][n] for n in names] + [best[n] for n in names]
+            + [st["mu"][n] for n in names] + [st["nu"][n] for n in names]
+            + [st["count"]["count"], generator.get_state()])
+
+
+def _check_layout(path: Path, member_seed: int, device: torch.device,
+                  n_leaves: int) -> None:
+    """Raise before any fallback where the archive was written by another
+    layout (a JAX package archive has no port layout key) or holds another
+    number of leaves: restarting from scratch would silently discard real
+    progress."""
+    meta = load_pytree_meta(path)
+    got, count = meta.get("layout"), count_pytree_leaves(path)
+    if got != _layout(device) or count != n_leaves:
+        raise RuntimeError(
+            f"[Member {member_seed}] resume checkpoint {path} holds layout "
+            f"{got!r} with {count} leaves, but this run writes "
+            f"{_layout(device)!r} with {n_leaves}; the states are "
+            "incompatible. Delete the resume file to deliberately restart "
+            "the member.")
+
+
 def train_member(
     store: GraphStore,
     cfg: TrainConfig,
@@ -243,6 +293,7 @@ def train_member(
     sigma_sched = cosine_lr(cfg.epochs, cfg.sigma_warmup_epochs, sigma_base,
                             cfg.lr_min)
 
+    names = leaf_names(model_cfg)
     val_idx = list(val_indices or [])
     val_batches = (epoch_batches(store, val_idx, budget, shuffle=False)
                    if val_idx else [])
@@ -251,6 +302,7 @@ def train_member(
     patience = max(cfg.early_stop, 0)
     stale = 0
     n_steps = 0
+    start_epoch = 1
     shuffle_rng = np.random.default_rng(member_seed + 17)
     pack_workers = max(int(cfg.pack_workers), 1)
     # KNN density-weighting state (opt-in; reference train.py:1822-1916)
@@ -263,6 +315,40 @@ def train_member(
         return {n: p.detach().to("cpu", copy=True)
                 for n, p in model.named_parameters()}
 
+    # mid-training resume (a framework extension: the reference restarts a
+    # crashed member from scratch)
+    rpath = resume_path(cfg, member_seed)
+    if cfg.resume and rpath.exists():
+        template = _resume_leaves(step, names, None, generator)
+        _check_layout(rpath, member_seed, device, len(template))
+        try:
+            leaves, meta = load_pytree(rpath, template)
+            n = len(names)
+            parts = [dict(zip(names, leaves[i * n:(i + 1) * n]))
+                     for i in range(4)]
+            resumed_at, resumed_stale = int(meta["epoch"]) + 1, \
+                int(meta["stale"])
+            best_maes = meta["best_mae_global"], meta["best_mae_reference"]
+            # written into the step's own tensors and the generator in
+            # place: a capture made later reads them where they are
+            step.load_state(parts[0], parts[2], parts[3], int(leaves[4 * n]))
+            generator.set_state(torch.from_numpy(leaves[4 * n + 1]))
+            start_epoch, stale = resumed_at, resumed_stale
+            selector.best_mae_global, selector.best_mae_reference = best_maes
+            selector.best = meta.get("best") or None
+            selector.best_epoch = meta.get("best_epoch")
+            if meta.get("has_best"):
+                best_state = {k: torch.from_numpy(v)
+                              for k, v in parts[1].items()}
+            for _ in range(start_epoch - 1):  # keep the shuffle stream aligned
+                shuffle_rng.permutation(max(len(effective), 1))
+            if cfg.verbose:
+                print(f"[Member {member_seed}] resumed at epoch {start_epoch}")
+        except Exception as exc:
+            print(f"[Member {member_seed}] resume failed ({exc}); starting "
+                  "fresh")
+    meter = ThroughputMeter()
+
     with ThreadPoolExecutor(max_workers=1) as pipeline:
         def submit_pack():
             order = np.asarray(effective, dtype=np.int64)
@@ -271,7 +357,7 @@ def train_member(
                                    shuffle=False, workers=pack_workers)
 
         next_batches = submit_pack()
-        for epoch in range(1, cfg.epochs + 1):
+        for epoch in range(start_epoch, cfg.epochs + 1):
             step.set_lr(mean_sched(epoch - 1), sigma_sched(epoch - 1))
             use_weights = (cfg.enable_density_weighting
                            and weights_by_index is not None
@@ -288,15 +374,19 @@ def train_member(
             batches = _graft_weights(next_batches.result(), weight_arr)
             if epoch < cfg.epochs:
                 next_batches = submit_pack()
+            for b in batches:
+                meter.count_batch(b)
             sums = np.zeros(6)   # loss, graphs, abs, sq, logvar, n_el
             # full K-batch chunks read their metrics back once; the
             # remainder step by step. No padded steps either way.
             n_scan = (len(batches) // scan_k) * scan_k if scan_k > 1 else 0
-            for i in range(0, n_scan, scan_k):
-                sums += _metric_sums(step.run(batches[i:i + scan_k],
-                                              generator))
-            for b in batches[n_scan:]:
-                sums += _metric_sums(step(b, generator))
+            with maybe_trace(cfg.profile_dir if epoch == start_epoch
+                             else None):
+                for i in range(0, n_scan, scan_k):
+                    sums += _metric_sums(step.run(batches[i:i + scan_k],
+                                                  generator))
+                for b in batches[n_scan:]:
+                    sums += _metric_sums(step(b, generator))
             n_steps += len(batches)
             train_loss = sums[0] / max(sums[1], 1.0)
             train_mae = sums[2] / max(sums[1], 1.0)
@@ -343,6 +433,19 @@ def train_member(
             else:
                 stale = 0
 
+            if cfg.checkpoint_every > 0 and epoch % cfg.checkpoint_every == 0:
+                save_pytree(rpath, _resume_leaves(step, names, best_state,
+                                                  generator),
+                            meta={"epoch": epoch, "stale": stale,
+                                  "best_mae_global": selector.best_mae_global,
+                                  "best_mae_reference":
+                                      selector.best_mae_reference,
+                                  "best": selector.best,
+                                  "best_epoch": selector.best_epoch,
+                                  "has_best": best_state is not None,
+                                  "flat_opt": bool(cfg.flat_opt),
+                                  "layout": _layout(device)})
+
             # KNN weight refresh after warmup (activated next epoch)
             if (cfg.enable_density_weighting
                     and epoch >= cfg.weight_warmup_epochs
@@ -367,11 +470,17 @@ def train_member(
     best = Alignn(model_cfg)
     best.load_state_dict(best_state if best_state is not None
                          else snapshot())
+    if rpath.exists():  # member finished: resume state no longer needed
+        try:
+            rpath.unlink()
+        except OSError:
+            pass
     best_metrics = dict(selector.best or {})
     if cfg.verbose and selector.best is not None:
         print(f"[Member {member_seed}] Best epoch {selector.best_epoch:03d} | "
               f"val_mae={_fmt(best_metrics['mae'])} "
               f"val_cov={_fmt(best_metrics.get('coverage', float('nan')))} "
               f"val_ece={_fmt(best_metrics['ece'])} | steps={n_steps} | "
+              f"throughput: {meter.summary()} | "
               f"time={time.time() - t0:.1f}s")
     return best, best_metrics, n_steps

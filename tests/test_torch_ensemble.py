@@ -173,12 +173,14 @@ def test_port_trained_ensemble_serves_in_both_packages(trained):
 
 
 UNPORTED = {
-    "member_parallel": "vmap", "data_shards": 2, "giant_graphs": "boundary",
-    "member_isolation": "process", "resume": True, "checkpoint_every": 2,
-    "profile_dir": "trace",
+    "member_parallel": "vmap", "data_shards": 2, "edge_shards": 2,
+    "giant_graphs": "boundary",
 }
-# options that raised until they were ported (KNN weighting, embeddings)
-PORTED = {"enable_density_weighting": True, "save_embeddings": True}
+# options that raised until they were ported (KNN weighting, embeddings,
+# member processes, resume and checkpoints, the profiler trace)
+PORTED = {"enable_density_weighting": True, "save_embeddings": True,
+          "member_isolation": "process", "resume": True,
+          "checkpoint_every": 2, "profile_dir": "trace"}
 
 
 @pytest.mark.parametrize("field", sorted({**UNPORTED, **PORTED}))

@@ -56,7 +56,12 @@ def test_importing_the_port_loads_no_jax():
             "gnnep_tpu_torch.data.structure",
             "gnnep_tpu_torch.data.neighbors",
             "gnnep_tpu_torch.data.featurize",
-            "gnnep_tpu_torch.train.knn_weights"} <= set(mods)
+            "gnnep_tpu_torch.train.knn_weights",
+            "gnnep_tpu_torch.train.member_proc",
+            "gnnep_tpu_torch.utils.profiling",
+            "gnnep_tpu_torch.infer.bundle", "gnnep_tpu_torch.cli.bundle",
+            "gnnep_tpu_torch.train.convert", "gnnep_tpu_torch.cli.convert",
+            "gnnep_tpu_torch.cli.parity"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(
