@@ -99,15 +99,16 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      'resumed at epoch 3', the steps of the uninterrupted run less the
      first two epochs', replays after the warm-up, kernels 6 and 7
      2·layers times a step and 5 2·layers times a forward; at epoch 4
-     Adam's count and the generator's state equal the uninterrupted run's
-     and the parameters (and `model_0.npz`, against the uninterrupted run
-     at its best epoch) lie within 4× the resumed runs' distance from each
-     other (float atomics); a captured step from the epoch-2 state equals
+     Adam's count and the generator's state equal the uninterrupted run's;
+     the parameters after the first step from the epoch-2 state lie from
+     the uninterrupted run's at that step within 4× the resumed runs'
+     distance from each other (float atomics), and their distances at
+     epoch 4 are printed; a captured step from the epoch-2 state equals
      the eager steps from it, at the `check` limits below. isolation:
-     `cli.train --member-isolation process` (2 members × 3 epochs f32):
+     `cli.train --member-isolation process` (2 members × 1 epoch f32):
      each child's launch counts (kernels 6 and 7 2·layers a step, none in
      the parent), and each member within 4× three in-process runs'
-     distance from each other, at its best epoch. profile: `cli.train
+     distance from each other. profile: `cli.train
      --profile-dir` (1 member × 2 epochs): one trace, the first epoch
      replayed its captured step, and the trace's calls of kernels 5, 6 and
      7 equal their launches over that epoch; the first epoch's wall traced
@@ -122,6 +123,35 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      state dict (`.pt`, random weights from a seed), served through
      `cli.predict` on the card and the CPU: kernel 5 2·layers a batch,
      card equal to CPU at the serving tolerance.
+     Run between knn and resume: the parallel/ group, over two gloo rank
+     processes on the one card (a two-card mesh's slots), started once.
+     mesh: the aligned step
+     on two 64-graph sub-batches a step, f32 and bf16, against the card's
+     step over their 128-graph union (f32: metrics at rtol 5e-3,
+     gradients within 5e-3 of each leaf's largest; bf16: each metric, and
+     all gradients together in L2, at most NOISE_FACTOR times as far from
+     the f32 step as the union step's bf16 ones, plus for a metric 5e-2
+     of its f32 value and 1e-2 a cell, for the gradients 1e-3 of the f32
+     norm), parameters
+     bitwise equal on both ranks, kernels 5, 6 and 7
+     2·layers a step on each; its wall beside the captured single-card
+     step; `cli.train --data-shards 1 --edge-shards 1` unchanged.
+     member_parallel: `cli.train --member-parallel vmap` (2 members × 2
+     epochs: one replay a lock-step for both members, kernels 2·layers a
+     member a step; the stacked step profiled, its calls equal to the
+     launch counts), `--member-parallel shard` with one member (this
+     process), and shard mode's two members over the pair (each rank's
+     launches and checkpoint). giant: the fixture's graphs with MgO
+     (252,048 angles) and a 2,040-atom synthetic crystal (295,298), both
+     beyond a batch's 74,880-row line-graph arena; `cli.train
+     --giant-graphs boundary --edge-shards 1` (the giants' eager boundary
+     steps beside the replayed packed steps), `cli.predict` /
+     `cli.evaluate --giant-shards 1` (the giants' rows last); then each
+     giant at S = 2 over the pair, f32 and bf16, against its unpartitioned
+     forward and step on the card, the bytes each rank sent equal to
+     `BoundaryPlan.comm_bytes_per_conv` × 3 × layers (MgO's 8 atoms fit
+     one window: nothing sent); the boundary step's walls at S = 2 and 1
+     and its device time at S = 1.
   6. check: one eager train step on the card against the CPU plain step
      from the same parameters and batch, dropout and jitter off, on each
      rung (span included), and on the default rung at hidden 512 / 4 heads
@@ -2127,9 +2157,9 @@ def phase_evaluate(root: Path, data: Path, ens: Path, layers: int,
     sizes = []
     orig = runner._collect_members
 
-    def recording(forward, runs, batches):
+    def recording(rows, runs, batches, *giants):
         sizes.append(len(batches))
-        return orig(forward, runs, batches)
+        return orig(rows, runs, batches, *giants)
 
     metrics, launches, seconds = {}, {}, {}
     runner._collect_members = recording
@@ -2511,25 +2541,61 @@ def npz_leaves(path: Path) -> list:
 # against, in multiples of those runs' own largest distance from each
 # other: on the card float atomics (kernel 6's dW_e, the pooling's
 # `index_add_`) move two runs of one member apart, by an amount that
-# varied fourfold between pairs of one call on an H100 (PERF.md §6)
+# varied fourfold between pairs of one call on an H100 (PERF.md §6).
+# Held where the runs' spread is tight: within the first two steps from
+# one state, 66 pairs of 12 runs lie within 1.3-1.8x of each other; by
+# the eighth the pairs spread 5-44x, in jumps, as Adam turns rounding
+# noise in gradients of about zero into whole steps (PERF.md §6, PR 13;
+# `dev/repro_probe.py`), so later distances are printed, not held
 NOISE_FACTOR = 4.0
 
 
-def check_noise(what: str, pairs, refs, scale) -> dict:
+def noise_reading(pairs, refs, scale) -> dict:
     """`pairs`: (got, want) leaf lists that should agree but for float
-    atomics; `refs`: leaf lists of runs that differ only by them. The
-    largest ‖got − want‖ / ‖scale‖ must be within NOISE_FACTOR times the
-    largest such distance between two of `refs`, plus 1e-6. Returns both."""
-    got = max(_rel(g, w, scale) for g, w in pairs)
-    noise = max(_rel(refs[i], refs[j], scale)
-                for i in range(len(refs)) for j in range(i + 1, len(refs)))
+    atomics; `refs`: leaf lists of runs that differ only by them → the
+    largest ‖got − want‖ / ‖scale‖ and the largest such distance between
+    two of `refs`."""
+    return {"rel_dist": max(_rel(g, w, scale) for g, w in pairs),
+            "runs_rel_dist": max(_rel(refs[i], refs[j], scale)
+                                 for i in range(len(refs))
+                                 for j in range(i + 1, len(refs)))}
+
+
+def check_noise(what: str, pairs, refs, scale) -> dict:
+    """`noise_reading`, whose first distance must be within NOISE_FACTOR
+    times the second, plus 1e-6. Returns both."""
+    reading = noise_reading(pairs, refs, scale)
+    got, noise = reading["rel_dist"], reading["runs_rel_dist"]
     if not got <= NOISE_FACTOR * noise + 1e-6:
         raise AssertionError(f"{what}: {got:.3e} of the update away, beyond "
                              f"{NOISE_FACTOR:g}x the runs' own {noise:.3e}")
-    return {"rel_dist": got, "runs_rel_dist": noise}
+    return reading
 
 
 RESUMES = 3
+
+
+@contextlib.contextmanager
+def step_states():
+    """`GraphTrainStep._one` wrapped: after each optimizer step of every
+    member's captured step, a device copy of its parameters (flat, the
+    step's order) is appended to the yielded list. The wrapper goes
+    afterwards."""
+    import torch
+    from gnnep_tpu_torch.train.loop import GraphTrainStep
+    real, kept = GraphTrainStep._one, []
+
+    def recording(self, batch, generator):
+        out = real(self, batch, generator)
+        kept.append(torch.cat([p.detach().reshape(-1)
+                               for p in self.params]).clone())
+        return out
+
+    GraphTrainStep._one = recording
+    try:
+        yield kept
+    finally:
+        GraphTrainStep._one = real
 
 
 def phase_resume(root: Path, data: Path, layers: int, setup, train_batches,
@@ -2545,13 +2611,15 @@ def phase_resume(root: Path, data: Path, layers: int, setup, train_batches,
     launches kernels 6 and 7 2·layers times a step and kernel 5 2·layers
     times a forward (train and eval), and ends with Adam's count and the
     generator's state equal to the uninterrupted run's. Their parameters
-    at epoch RESUME_EPOCHS, and their `model_0.npz` against the
-    uninterrupted run's parameters at their best epoch, lie within
-    NOISE_FACTOR times the resumed runs' distance from each other (all
-    start from the same bits at epoch 2: only float atomics part them;
-    `check_noise`). Then a captured step from the epoch-2 state (written
-    into the step after its capture) against eager steps from it
-    (`phase_check_captured`)."""
+    after their first step lie from the uninterrupted run's after its
+    first step from the epoch-2 state within NOISE_FACTOR times the
+    resumed runs' distance from each other (all start from the same bits:
+    only float atomics part them; `check_noise`, over that step's update);
+    their parameters at epoch RESUME_EPOCHS, and their `model_0.npz`
+    against the uninterrupted run's parameters at their best epoch, are
+    printed beside the same spread. Then a captured step from the epoch-2
+    state (written into the step after its capture) against eager steps
+    from it (`phase_check_captured`)."""
     import torch
     from gnnep_tpu_torch.cli import train as cli_train
     res = {}
@@ -2573,12 +2641,13 @@ def phase_resume(root: Path, data: Path, layers: int, setup, train_batches,
             log_path = root / f"resume_{dtype}_{kind}.txt"
             with open(log_path, "w") as log, \
                     contextlib.redirect_stdout(log), \
-                    archives(2, copies) as kept:
+                    archives(2, copies) as kept, step_states() as states:
                 result = run_counted(lambda: cli_train.main(args))
             torch.cuda.synchronize()
             secs[kind] = time.perf_counter() - t0
             runs[kind] = dict(kept=kept, out=out, result=result,
-                              log=log_path.read_text())
+                              log=log_path.read_text(), states=[
+                                  x.cpu().numpy() for x in states])
         full = runs["full"]
         first_two = int(full["kept"][(seed, 2)]["leaves"][4 * n])
         total = full["result"][0]["optimizer_steps"]
@@ -2618,15 +2687,27 @@ def phase_resume(root: Path, data: Path, layers: int, setup, train_batches,
             if (r["out"] / f"resume_member_{seed}.npz").exists():
                 raise AssertionError(f"resume {dtype}: the resume file "
                                      "outlived the member")
+        # the first step from the epoch-2 state: the uninterrupted run's
+        # step first_two + 1 against each resumed run's first
+        states = full["states"]
+        if len(states) != total or any(len(r["states"]) != total - first_two
+                                       for r in resumed):
+            raise AssertionError(f"resume {dtype}: recorded "
+                                 f"{len(states)} and "
+                                 f"{[len(r['states']) for r in resumed]} "
+                                 "steps")
+        firsts = [[r["states"][0]] for r in resumed]
+        first = check_noise(
+            f"resume {dtype} parameters after the first resumed step",
+            [(f, [states[first_two]]) for f in firsts], firsts,
+            [states[first_two] - states[first_two - 1]])
         scale = [a - b for a, b in zip(last_full[:n],
                                        full["kept"][(seed, 2)]["leaves"][:n])]
         finals = [r["kept"][(seed, RESUME_EPOCHS)]["leaves"][:n]
                   for r in resumed]
-        final = check_noise(
-            f"resume {dtype} parameters at epoch {RESUME_EPOCHS}",
-            [(f, last_full[:n]) for f in finals], finals, scale)
-        saved = check_noise(
-            f"resume {dtype} model_0.npz",
+        final = noise_reading([(f, last_full[:n]) for f in finals], finals,
+                              scale)
+        saved = noise_reading(
             [(npz_leaves(r["out"] / "model_0.npz"),
               full["kept"][(seed, r["best"])]["leaves"][:n])
              for r in resumed], finals, scale)
@@ -2644,13 +2725,16 @@ def phase_resume(root: Path, data: Path, layers: int, setup, train_batches,
                           uninterrupted_steps=total,
                           first_two_epochs_steps=first_two,
                           best_epochs=[r["best"] for r in resumed],
-                          seconds=secs, final=final, model_0=saved)
+                          seconds=secs, first_step=first, final=final,
+                          model_0=saved)
         say("resume", dtype=dtype, epochs=RESUME_EPOCHS, resumed_from=2,
             resumed_runs=RESUMES, resumed_steps=summary["optimizer_steps"],
             uninterrupted_steps=total, first_two_epochs_steps=first_two,
             step_replays=replays["train"], eval_forwards=forwards["eval"],
             kernel_launches=json.dumps(counts),
             adam_count_equal=True, generator_state_equal=True,
+            first_step_rel_dist=f"{first['rel_dist']:.3e}",
+            first_step_resumed_runs_rel_dist=f"{first['runs_rel_dist']:.3e}",
             final_rel_dist=f"{final['rel_dist']:.3e}",
             final_resumed_runs_rel_dist=f"{final['runs_rel_dist']:.3e}",
             best_epochs=",".join(str(r["best"]) for r in resumed),
@@ -2666,6 +2750,7 @@ def leaf_names_of(setup):
 
 
 INPROC_RUNS = 3
+ISOLATION_EPOCHS = 1
 _CHILD_LINE = re.compile(r"^\[member_proc (\d+)\] launches=(\{.*\})$",
                          re.MULTILINE)
 _BEST_LINE = re.compile(r"^\[Member (\d+)\] Best epoch (\d+) ", re.MULTILINE)
@@ -2680,36 +2765,34 @@ def child_counts(log: str) -> dict:
             for i, js in _CHILD_LINE.findall(log)}
 
 
-def phase_isolation(root: Path, data: Path, layers: int, setup,
-                    inproc_dir: Path):
+def phase_isolation(root: Path, data: Path, layers: int, setup):
     """`cli.train --member-isolation process`, TRAIN_MEMBERS members ×
-    TRAIN_EPOCHS epochs in f32 (phase_train's f32 request): each member
-    trained in its own `python -m gnnep_tpu_torch.train.member_proc`
-    process, which prints its launch counts (kernels 6 and 7 2·layers times
-    per optimizer step that it reports); the parent launches neither.
-    Against INPROC_RUNS in-process runs of the same request that keep
-    every epoch's parameters (`--checkpoint-every 1`, `archives`), each
-    process member's `model_{i}.npz` lies within NOISE_FACTOR times their
-    distance from each other of their parameters at the process member's
-    best epoch (`check_noise`; at its best epoch, so that a best epoch two
-    runs choose apart cannot fail it); phase_train's run (`inproc_dir`) is
-    set beside it."""
+    ISOLATION_EPOCHS epoch in f32 (phase_train's f32 request but the
+    epochs): each member trained in its own `python -m
+    gnnep_tpu_torch.train.member_proc` process, which prints its launch
+    counts (kernels 6 and 7 2·layers times per optimizer step that it
+    reports); the parent launches neither. Against INPROC_RUNS in-process
+    runs of the same request, each process member's `model_{i}.npz` lies
+    within NOISE_FACTOR times their distance from each other of theirs
+    (`check_noise`, over the update from the member's initial
+    parameters). One epoch is two optimizer steps, where runs of one
+    member on the card stay within 1.3x of each other (NOISE_FACTOR)."""
     import torch
     from gnnep_tpu_torch.cli import train as cli_train
     base = quiet_off(train_argv(data, root / "unused", "float32",
-                                TRAIN_MEMBERS, TRAIN_EPOCHS))
+                                TRAIN_MEMBERS, ISOLATION_EPOCHS))
 
     def argv_for(out, extra):
         return [a if a != str(root / "unused") else str(out)
                 for a in base] + extra
 
-    recorded = []
+    inproc = []
     for k in range(INPROC_RUNS):
         out = root / f"isolation_inproc_{k}"
         with open(root / f"isolation_inproc_{k}.txt", "w") as log, \
-                contextlib.redirect_stdout(log), archives() as kept:
-            cli_train.main(argv_for(out, ["--checkpoint-every", "1"]))
-        recorded.append(kept)
+                contextlib.redirect_stdout(log):
+            cli_train.main(argv_for(out, []))
+        inproc.append(out)
     out = root / "isolation_proc"
     t0 = time.perf_counter()
     with open(root / "isolation_proc.txt", "w") as log, \
@@ -2735,26 +2818,21 @@ def phase_isolation(root: Path, data: Path, layers: int, setup,
                 raise AssertionError(
                     f"isolation: member {i}'s process launched {name} "
                     f"{kids[i][name]} times for {steps[i]} steps")
-        init, seed = member_init(base, setup, i)
-        n = len(init)
-        b = best[seed]
+        init, _ = member_init(base, setup, i)
         got = npz_leaves(out / f"model_{i}.npz")
-        refs = [r[(seed, b)]["leaves"][:n] for r in recorded]
+        refs = [npz_leaves(d / f"model_{i}.npz") for d in inproc]
         upd = [w - v for w, v in zip(refs[0], init)]
-        close = check_noise(f"isolation member {i} (best epoch {b})",
+        close = check_noise(f"isolation member {i}",
                             [(got, r) for r in refs], refs, upd)
-        close["phase_train_rel_dist"] = _rel(
-            got, npz_leaves(inproc_dir / f"model_{i}.npz"), upd)
         members.append(close)
-        say("isolation", member=i, process_steps=steps[i], best_epoch=b,
+        say("isolation", member=i, process_steps=steps[i],
             child_kernel_launches=json.dumps(kids[i]),
             rel_dist=f"{close['rel_dist']:.3e}",
-            inproc_runs_rel_dist=f"{close['runs_rel_dist']:.3e}",
-            phase_train_rel_dist=f"{close['phase_train_rel_dist']:.3e}")
+            inproc_runs_rel_dist=f"{close['runs_rel_dist']:.3e}")
     launches = {name: sum(k[name] for k in kids.values())
                 for name in ("attn_eproj_fwd", "attn_eproj_bwd",
                              "csr_segment_sum")}
-    say("isolation", members=TRAIN_MEMBERS, epochs=TRAIN_EPOCHS,
+    say("isolation", members=TRAIN_MEMBERS, epochs=ISOLATION_EPOCHS,
         cli_seconds=f"{secs:.2f}", parent_kernel_launches=json.dumps(counts),
         children_kernel_launches=json.dumps(launches))
     return dict(launches=launches, seconds=secs, members=members,
@@ -4387,6 +4465,715 @@ def profile_run(run_all, label: str, dtype: str, n_calls: int,
     return busy_us / wall_us, busy_us / 1e3 / n_calls
 
 
+# --------------------------------------------------------- parallel/ group
+# Two gloo ranks on the one card (a multi-card mesh's slots, each a process
+# bound to cuda:0), started once and shared by [mesh], [member_parallel]
+# and [giant]; one-slot paths run in this process.
+MESH_STEPS = 2        # aligned steps checked per dtype, 2 sub-batches each
+MESH_TIMED = 5        # timed passes over them, after a warm-up pass
+VMAP_MEMBERS, VMAP_EPOCHS = 2, 2
+GIANT_ID, SYNTH_GIANT = "example-MgO", "synth-giant"
+GIANT_TIMED = 3
+MESH_LR = 1e-3
+# a gradient leaf compared across layouts on the card: within this share
+# of the leaf's largest magnitude plus 1e-5 (the step check's 5e-3 in f32;
+# bf16 at the bf16 forward's 5e-2), and StepMetrics at rtol / atol
+STEP_TOL = {"float32": 5e-3, "bfloat16": 5e-2}
+METRIC_ATOL = 1e-4
+
+
+def pair_mesh(dev):
+    """The two-slot mesh on `dev`'s card: gloo (NCCL refuses a card used
+    twice)."""
+    from gnnep_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(1, 2, devices=[f"{dev.type}:{dev.index or 0}"] * 2,
+                     backend="gloo")
+
+
+def synced(fn):
+    """`fn` followed by a synchronization of the card."""
+    import torch
+
+    def run():
+        fn()
+        torch.cuda.synchronize()
+    return run
+
+
+def _rank_reset(rank):
+    """The rank process's launch counts and exchange bytes to 0."""
+    from gnnep_tpu_torch.parallel import mesh
+    reset_counts()
+    mesh.sent_bytes = 0
+
+
+def _rank_counts(rank):
+    return read_counts()
+
+
+def expect_counts(what: str, counts: dict, want: dict) -> None:
+    """Each kernel named in `want` launched exactly that often; a kernel of
+    another rung never."""
+    others = {k: v for k, v in counts.items()
+              if k not in want and k not in ("attn_eproj_ladder",
+                                             "row_gather") and v}
+    wrong = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if wrong or others:
+        raise AssertionError(f"{what}: launches (got, want) {wrong}, other "
+                             f"kernels {others}")
+
+
+def expect_replays(what: str, replays: dict, train: int) -> None:
+    """`train` captured train steps replayed, and some eval forwards."""
+    if replays["train"] != train or replays["eval"] <= 0:
+        raise AssertionError(f"{what}: {replays} replays, expected {train} "
+                             "train steps and some eval forwards")
+
+
+def near_limit(got, ref, f32, floor: float):
+    """(‖got − f32‖, its limit) of `near_as_ref`."""
+    got, ref, f32 = (np.asarray(x, np.float64).ravel() for x in
+                     (got, ref, f32))
+    err = float(np.linalg.norm(got - f32)) if np.isfinite(got).all() \
+        else float("inf")
+    return err, NOISE_FACTOR * float(np.linalg.norm(ref - f32)) \
+        + floor * float(np.linalg.norm(f32)) + 1e-6
+
+
+def near_as_ref(what: str, got, ref, f32, floor: float) -> float:
+    """A bf16 result of one layout against the same of another, where bf16
+    rounds in each layout's own order: `got` may lie from the f32 result
+    `f32` at most NOISE_FACTOR times as far as `ref` lies from it (L2 over
+    every element: two layouts' rounding errors are alike in size, not in
+    value, and a per-leaf maximum over 70 leaves read 3.8× on one leaf in
+    a card run), plus `floor` of f32's norm (+1e-6) → the share of that
+    limit."""
+    err, lim = near_limit(got, ref, f32, floor)
+    if err > lim:
+        raise AssertionError(f"{what}: {err:.3e} from the f32 result, limit "
+                             f"{lim:.3e}")
+    return err / lim
+
+
+METRIC_NAMES = ("loss_sum", "n_graphs", "abs_err_sum", "sq_err_sum",
+                "n_elements", "logvar_sum")
+COUNTS = ("n_graphs", "n_elements")
+
+
+def layout_limits(dtype: str, metrics, ref_metrics, grads, ref_grads,
+                  f32=None) -> list:
+    """[(what, err, limit)] of `compare_layouts`' comparisons; err is inf
+    where the result is not finite."""
+    tol = STEP_TOL[dtype]
+    rows = []
+    for k, (name, a, b) in enumerate(zip(METRIC_NAMES, metrics,
+                                         ref_metrics)):
+        if f32 is None:
+            err, lim = abs(a - b), METRIC_ATOL + tol * abs(b)
+        elif name in COUNTS:
+            # counts of real graphs and cells: exact in any layout
+            err, lim = abs(a - float(f32[0][k])), 0.0
+        else:
+            # a sum over (graph, target) cells: as near the f32 step's as
+            # the reference layout's, plus the bf16 forward's 5e-2 of the
+            # f32 value and 1e-2 a cell (logvar_sum's terms cancel)
+            f = float(f32[0][k])
+            err = abs(a - f)
+            lim = NOISE_FACTOR * abs(b - f) + tol * abs(f) \
+                + 1e-2 * float(ref_metrics[4]) + 1e-6
+        rows.append((name, err if np.isfinite(a) else float("inf"), lim))
+    if f32 is not None and grads:
+        names = sorted(grads)
+        rows.append(("all leaves", *near_limit(
+            np.concatenate([grads[n].ravel() for n in names]),
+            np.concatenate([ref_grads[n].ravel() for n in names]),
+            np.concatenate([f32[1][n].ravel() for n in names]), 1e-3)))
+    for name, g in (grads.items() if f32 is None else ()):
+        r = ref_grads[name]
+        rows.append((name, float(np.abs(g - r).max())
+                     if np.isfinite(g).all() else float("inf"),
+                     tol * np.abs(r).max() + 1e-5))
+    return rows
+
+
+def compare_layouts(what: str, dtype: str, metrics, ref_metrics, grads,
+                    ref_grads, f32=None) -> dict:
+    """A step of one layout against the reference layout's step from the
+    same state. f32: StepMetrics at rtol STEP_TOL / atol METRIC_ATOL, each
+    gradient leaf within STEP_TOL of its largest magnitude (+1e-5). bf16
+    (`f32`: the reference layout's f32 step, (metrics, grads)): the counts
+    of real graphs and cells equal; each other metric, and all gradients
+    together in L2, as near the f32 step as the reference layout's bf16
+    step (`near_as_ref`), plus for a metric STEP_TOL of its f32 value and
+    1e-2 a (graph, target) cell, for the gradients 1e-3 of the norm
+    (`layout_limits`). → the worst shares of those limits."""
+    worst_m, worst_g, leaf = 0.0, 0.0, ""
+    for name, err, lim in layout_limits(dtype, metrics, ref_metrics, grads,
+                                        ref_grads, f32):
+        if err > lim:
+            raise AssertionError(f"{what} {dtype} {name}: differs by "
+                                 f"{err:.3e}, limit {lim:.3e}")
+        share = err / lim if lim > 0 else 0.0
+        if name in METRIC_NAMES:
+            worst_m = max(worst_m, share)
+        elif share >= worst_g:
+            worst_g, leaf = share, name
+    return dict(metrics_share_of_limit=f"{worst_m:.3f}",
+                grad_share_of_limit=f"{worst_g:.3f}", nearest_leaf=leaf)
+
+
+def _state(model) -> dict:
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in model.state_dict().items()}
+
+
+def _card_model(cfg, state, dev):
+    import torch
+    from gnnep_tpu_torch.models.alignn import Alignn
+    model = Alignn(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model.to(dev)
+
+
+def _rank_aligned_wall(rank, state, cfg, hyper, means, stds, slots, reps):
+    """Host ms per aligned step on this rank over `reps` passes of `slots`,
+    after a warm-up pass (its eager step and its two captures)."""
+    import torch
+    from gnnep_tpu_torch.parallel.train_step import make_aligned_train_step
+    step = make_aligned_train_step(rank, _card_model(cfg, state,
+                                                     rank.device),
+                                   hyper, means, stds)
+
+    def run():
+        for group in slots:
+            step(group[rank.rank], None, MESH_LR, MESH_LR)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    wall = (time.perf_counter() - t0) * 1e3 / (reps * len(slots))
+    step.close()
+    return wall
+
+
+def phase_mesh(pair, root: Path, data: Path, setup, batches, dev,
+               layers: int):
+    """The graph-aligned step over the gloo pair, f32 and bf16: two steps
+    of two 64-graph sub-batches each against the card's single-device step
+    over each step's 128-graph union batch (StepMetrics and the reduced
+    gradients at `compare_layouts`' limits), the parameters bitwise equal
+    on both ranks, each rank's kernels 5, 6 and 7 2·layers times a step;
+    its wall per step beside the card's captured single-device step on the
+    same sub-batches (bf16 at `compare_layouts`' bf16 rule against the
+    f32 union step). Then `cli.train --data-shards 1 --edge-shards 1` on
+    the card: the single-device path, unchanged."""
+    import torch
+    from gnnep_tpu_torch.cli import train as cli_train
+    from gnnep_tpu_torch.data.batching import BatchBudget, epoch_batches
+    from gnnep_tpu_torch.models.alignn import init_alignn
+    from gnnep_tpu_torch.parallel.train_step import (aligned_steps_rank,
+                                                     stack_for_mesh)
+    from gnnep_tpu_torch.train.loop import (TrainHyper, TrainStep,
+                                            make_train_step)
+    cfg, _ = check_config(setup, batches, "eproj")
+    t = setup.transformer
+    state = _state(init_alignn(np.random.default_rng(SEED + 60), cfg))
+    slots = [stack_for_mesh(batches[2 * k:2 * k + 2], 2)
+             for k in range(MESH_STEPS)]
+    unions = []
+    for group in slots:
+        ids = [int(i) for b in group for i in np.asarray(b.sample_index)
+               if i >= 0]
+        ub = epoch_batches(setup.store, ids, BatchBudget.plan(
+            setup.store, ids, len(ids), cover_all=True), shuffle=False)
+        if len(ub) != 1:
+            raise AssertionError(f"the union of {len(ids)} graphs packed "
+                                 f"{len(ub)} batches")
+        unions.append(ub[0])
+    lrs = [(MESH_LR, MESH_LR)] * MESH_STEPS
+    out, f32_ref = {}, None
+    for dtype in ("float32", "bfloat16"):
+        hyper = TrainHyper(feature_jitter_std=0.0, compute_dtype=dtype)
+        pair.run(_rank_reset)
+        t0 = time.perf_counter()
+        ranks = pair.run(aligned_steps_rank, state, cfg, hyper, t.means,
+                         t.stds, slots, lrs, every_rank=True)
+        secs = time.perf_counter() - t0
+        counts = pair.run(_rank_counts, every_rank=True)
+        want = 2 * layers * MESH_STEPS
+        for r, c in enumerate(counts):
+            expect_counts(f"mesh {dtype} rank {r}", c, {
+                "attn_eproj_fwd": want, "attn_eproj_bwd": want,
+                "csr_segment_sum": want})
+        for name, v in ranks[0]["params"].items():
+            if not np.array_equal(v, ranks[1]["params"][name]):
+                raise AssertionError(f"mesh {dtype}: {name} differs across "
+                                     "the ranks")
+        ref = TrainStep(_card_model(cfg, state, dev), hyper, t.means,
+                        t.stds)
+        ref_ms = [[float(x) for x in ref(u, None, *lr)]
+                  for u, lr in zip(unions, lrs)]
+        ref_grads = {n: p.grad.detach().float().cpu().numpy()
+                     for n, p in zip(ref.names, ref.params)}
+        for k in range(MESH_STEPS - 1):
+            compare_layouts("mesh", dtype, ranks[0]["metrics"][k],
+                            ref_ms[k], {}, {},
+                            f32_ref and (f32_ref[0][k], {}))
+        worst = compare_layouts("mesh", dtype, ranks[0]["metrics"][-1],
+                                ref_ms[-1], ranks[0]["grads"], ref_grads,
+                                f32_ref and (f32_ref[0][-1], f32_ref[1]))
+        f32_ref = f32_ref or (ref_ms, ref_grads)
+        wall = pair.run(_rank_aligned_wall, state, cfg, hyper, t.means,
+                        t.stds, slots, MESH_TIMED)
+        single = make_train_step(_card_model(cfg, state, dev), hyper,
+                                 t.means, t.stds, dev)
+        flat = [b for group in slots for b in group]
+        single_ms, _ = chunk_ms(synced(lambda: [single(b, None, MESH_LR,
+                                                       MESH_LR)
+                                                for b in flat]),
+                                reps=MESH_TIMED)
+        single.close()
+        out[dtype] = dict(counts=counts[0], ranks=2, steps=MESH_STEPS,
+                          run_seconds=secs, aligned_wall_ms=wall,
+                          single_captured_wall_ms=single_ms / len(flat),
+                          **worst)
+        say("mesh", dtype=dtype, ranks=2, backend="gloo",
+            steps=MESH_STEPS, graphs_per_step=int(sum(
+                float(np.sum(b.graph_mask)) for b in slots[0])),
+            params_bitwise_across_ranks=True,
+            kernel_launches_rank0=json.dumps(counts[0]),
+            aligned_wall_ms_per_step=f"{wall:.2f}",
+            single_card_captured_wall_ms_per_subbatch=(
+                f"{single_ms / len(flat):.2f}"), **worst)
+    # one slot: the single-device path in this process, as before
+    t0 = time.perf_counter()
+    with open(root / "train_1x1.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        summary, counts, losses, _, replays = run_counted(
+            lambda: cli_train.main(train_argv(
+                data, root / "trained_1x1", "float32", 1, 1)
+                + ["--data-shards", "1", "--edge-shards", "1"]))
+    steps = summary["optimizer_steps"]
+    check_replays("mesh 1x1", replays, steps, 1)
+    want = 2 * layers * steps
+    if counts["attn_eproj_bwd"] != want or counts["csr_segment_sum"] != want:
+        raise AssertionError(f"mesh 1x1: {counts} for {steps} steps")
+    say("mesh", slots="1x1", optimizer_steps=steps,
+        step_replays=replays["train"], kernel_launches=json.dumps(counts),
+        cli_seconds=f"{time.perf_counter() - t0:.2f}")
+    out["one_slot"] = dict(counts=counts, steps=steps)
+    return out
+
+
+def phase_member_parallel(pair, root: Path, data: Path, setup, batches,
+                          dev, layers: int):
+    """`cli.train --member-parallel vmap` (2 members × 2 epochs, f32): one
+    captured graph a step for both members (replays = lock-step steps − the
+    warm-up), kernels 5, 6 and 7 2·layers times a member a step; the
+    stacked step's device time and busy share from a profiled chunk (its
+    kernel calls equal the launch counts). `--member-parallel shard
+    --ensemble-size 1` on the card (one slot: this process). Then shard
+    mode's rank body over the gloo pair, 2 members × 1 epoch, one a rank:
+    each rank's kernels 2·layers times a step of its member, and each
+    rank's checkpoint written."""
+    import torch
+    from gnnep_tpu_torch.cli import train as cli_train
+    from gnnep_tpu_torch.models.alignn import init_alignn
+    from gnnep_tpu_torch.parallel.ensemble_vmap import (StackedTrainStep,
+                                                        _shard_rank)
+    from gnnep_tpu_torch.train.ensemble import prepare
+    from gnnep_tpu_torch.train.loop import WARMUP_STEPS, TrainHyper
+    out = {}
+    t0 = time.perf_counter()
+    with open(root / "train_vmap.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        summary, counts, _, _, replays = run_counted(
+            lambda: cli_train.main(train_argv(
+                data, root / "trained_vmap", "float32", VMAP_MEMBERS,
+                VMAP_EPOCHS) + ["--member-parallel", "vmap"]))
+    secs = time.perf_counter() - t0
+    member_steps = summary["member_optimizer_steps"]
+    if len(set(member_steps)) != 1 or member_steps[0] <= 0:
+        raise AssertionError(f"vmap: member steps {member_steps}")
+    lock = member_steps[0]
+    # one graph a step for both members
+    expect_replays("vmap", replays, lock - WARMUP_STEPS)
+    want = 2 * layers * VMAP_MEMBERS * lock
+    if counts["attn_eproj_bwd"] != want or counts["csr_segment_sum"] != want \
+            or counts["attn_eproj_fwd"] < want:
+        raise AssertionError(f"vmap: {counts}, expected {want} of kernels "
+                             "6 and 7 and at least as many of 5")
+    for i in range(VMAP_MEMBERS):
+        if not (root / "trained_vmap" / f"model_{i}.npz").exists():
+            raise AssertionError(f"vmap: model_{i}.npz not written")
+    # the stacked step's device time, in this process
+    cfg, _ = check_config(setup, batches, "eproj")
+    t = setup.transformer
+    step = StackedTrainStep(
+        [init_alignn(np.random.default_rng(SEED + 80 + i), cfg)
+         for i in range(VMAP_MEMBERS)], TrainHyper(), t.means, t.stds, dev)
+    step.set_lrs(np.full((VMAP_MEMBERS, 2), 1e-4))
+    gens = [torch.Generator(device=dev) for _ in range(VMAP_MEMBERS)]
+    chunk = batches[:TIMING_K]
+
+    @synced
+    def run_all():
+        for k in range(len(chunk)):
+            step([chunk[(k + i) % len(chunk)] for i in range(VMAP_MEMBERS)],
+                 gens)
+
+    wall, _ = chunk_ms(run_all)
+    share, dev_ms = profile_run(run_all, "vmap_step", "float32", len(chunk),
+                                counted=True)
+    step.close()
+    out["vmap"] = dict(counts=counts, member_steps=member_steps,
+                       cli_seconds=secs, step_replays=replays["train"],
+                       stacked_wall_ms=wall / len(chunk),
+                       stacked_device_ms=dev_ms, busy_share=share)
+    say("member_parallel", mode="vmap", members=VMAP_MEMBERS,
+        lock_steps=lock, step_replays=replays["train"],
+        forward_replays=replays["eval"], kernel_launches=json.dumps(counts),
+        stacked_wall_ms_per_step=f"{wall / len(chunk):.2f}",
+        stacked_device_ms_per_step=f"{dev_ms:.3f}",
+        device_busy_share=f"{share:.3f}", cli_seconds=f"{secs:.2f}")
+    # shard, one member: one slot, this process
+    with open(root / "train_shard1.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        summary, counts, _, _, replays = run_counted(
+            lambda: cli_train.main(train_argv(
+                data, root / "trained_shard1", "float32", 1, 1)
+                + ["--member-parallel", "shard"]))
+    steps = summary["optimizer_steps"]
+    check_replays("shard 1", replays, steps, 1)
+    want = 2 * layers * steps
+    if counts["attn_eproj_bwd"] != want or counts["csr_segment_sum"] != want:
+        raise AssertionError(f"shard 1: {counts} for {steps} steps")
+    out["shard_one"] = dict(counts=counts, steps=steps)
+    say("member_parallel", mode="shard", members=1, slots="this process",
+        optimizer_steps=steps, kernel_launches=json.dumps(counts))
+    # shard, two members over the gloo pair
+    args = cli_train.build_parser().parse_args(
+        train_argv(data, root / "trained_shard2", "float32", 2, 1)
+        + ["--member-parallel", "shard"])
+    scfg = cli_train.config_from_args(args)
+    Path(scfg.save_dir).mkdir(parents=True, exist_ok=True)
+    ssetup = prepare(scfg)
+    pair.run(_rank_reset)
+    t0 = time.perf_counter()
+    ranks = pair.run(_shard_rank, ssetup, scfg, None, every_rank=True)
+    secs = time.perf_counter() - t0
+    counts = pair.run(_rank_counts, every_rank=True)
+    for r, ((n_steps, _), c) in enumerate(zip(ranks, counts)):
+        want = 2 * layers * n_steps
+        if c["attn_eproj_bwd"] != want or c["csr_segment_sum"] != want:
+            raise AssertionError(f"shard rank {r}: {c} for {n_steps} steps")
+        if not (Path(scfg.save_dir) / f"model_{r}.npz").exists():
+            raise AssertionError(f"shard rank {r}: no model_{r}.npz")
+    out["shard_pair"] = dict(counts=counts[0], steps=[n for n, _ in ranks],
+                             seconds=secs)
+    say("member_parallel", mode="shard", members=2, slots="gloo pair",
+        optimizer_steps=json.dumps([n for n, _ in ranks]),
+        kernel_launches_rank0=json.dumps(counts[0]),
+        kernel_launches_rank1=json.dumps(counts[1]),
+        seconds=f"{secs:.2f}")
+    return out
+
+
+def giant_store(root: Path, data: Path) -> Path:
+    """The fixture's graphs, `GIANT_ID` from `[featurize]`'s fetch (the
+    7.5 Å cutoff: 8 atoms, 1,424 bonds, 252,048 line-graph edges) and
+    `SYNTH_GIANT`, a synthetic crystal of about 2,000 atoms (about 24k
+    bonds, 290k line-graph edges) whose rows straddle two ranks' windows,
+    in one store."""
+    from gnnep_tpu_torch.data.store import GraphStore, save_sample, write_index
+    from gnnep_tpu_torch.utils.synth import synthetic_graph
+    fetched = GraphStore.load_dir(root / "fetched", require_target=False,
+                                  use_cache=False)
+    base = GraphStore.load_dir(data)
+    samples = [base.sample(g) for g in range(base.n_graphs)]
+    samples.append(fetched.sample(fetched.material_ids.index(GIANT_ID)))
+    samples.append(synthetic_graph(np.random.default_rng(SEED + 50),
+                                   SYNTH_GIANT, mean_atoms=2000, degree=12))
+    out = root / "giant_data"
+    for s in samples:
+        save_sample(out, s)
+    write_index(out, GraphStore.from_samples(samples))
+    return out
+
+
+def _rank_boundary_wall(rank, state, cfg, hyper, means, stds, plan, bb, tb,
+                        reps):
+    """Host ms per boundary step of `bb` on this rank after one warm-up."""
+    import torch
+    from gnnep_tpu_torch.parallel.boundary_shard import RankBoundaryBatch
+    from gnnep_tpu_torch.parallel.train_step import BoundaryTrainStep
+    from gnnep_tpu_torch.train.loop import TrainStep
+    base = TrainStep(_card_model(cfg, state, rank.device), hyper, means,
+                     stds)
+    base.set_lr(MESH_LR, MESH_LR)
+    step = BoundaryTrainStep(base, rank, plan)
+    rb = RankBoundaryBatch.from_boundary(bb, tb, rank.edge, rank.device)
+    step(rb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(rb)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_giant(pair, root: Path, data: Path, dev, layers: int):
+    """A giant beside the fixture's graphs: `GIANT_ID` holds more
+    line-graph edges (252,048) than a 64-graph batch's arena (74,880).
+    `cli.train --giant-graphs boundary --edge-shards 1` (1 member × 1
+    epoch, no bootstrap, the first seed that puts the giant in the train
+    split): its boundary step runs in this process beside the captured
+    packed steps, kernels 6 and 7 2·layers times a step of either kind;
+    `cli.predict` and `cli.evaluate --no-plots --giant-shards 1` route it
+    (its row finite; kernel 5 2·layers a forward). Then the S = 2 boundary
+    forward and step over the gloo pair, f32 and bf16, against the card's
+    unpartitioned forward (SERVE_RTOL / SERVE_ATOL in f32; in bf16
+    `near_as_ref` with a floor of 1e-2: as near the f32 forward as the
+    unpartitioned bf16 one) and
+    step (`compare_layouts`), each rank's kernels 5 (eval and
+    train forward), 6 and 7 2·layers times, the bytes each rank sent
+    through the exchange against `BoundaryPlan.comm_bytes_per_conv`; the
+    boundary step's wall at S = 2 and S = 1 beside the unpartitioned
+    step's, and the S = 1 step's device time."""
+    import torch
+    from gnnep_tpu_torch.cli import evaluate as cli_evaluate
+    from gnnep_tpu_torch.cli import predict as cli_predict
+    from gnnep_tpu_torch.cli import train as cli_train
+    from gnnep_tpu_torch.data.batching import epoch_batches
+    from gnnep_tpu_torch.models.alignn import DeviceBatch, init_alignn
+    from gnnep_tpu_torch.parallel.giant import build_giant_set
+    from gnnep_tpu_torch.parallel.mesh import Rank, make_mesh
+    from gnnep_tpu_torch.parallel.train_step import boundary_steps_rank
+    from gnnep_tpu_torch.train.ensemble import prepare
+    from gnnep_tpu_torch.train.loop import (MIN_LOGVAR_FLOOR, WARMUP_STEPS,
+                                            Forward, TrainHyper, TrainStep,
+                                            cast_model, make_train_step)
+    gdata = giant_store(root, data)
+    flags = ["--giant-graphs", "boundary", "--edge-shards", "1",
+             "--no-bootstrap-train"]
+
+    def argv(seed):
+        a = train_argv(gdata, root / "trained_giant", "float32", 1, 1)
+        a[a.index("--seed") + 1] = str(seed)
+        return a + flags
+
+    for seed in range(SEED, SEED + 50):
+        setup = prepare(cli_train.config_from_args(
+            cli_train.build_parser().parse_args(argv(seed))))
+        if setup.giant and set(setup.giant.indices) & set(setup.train_idx):
+            break
+    else:
+        raise AssertionError("no seed put the giant in the train split")
+    ids = setup.store.material_ids
+    if sorted(ids[g] for g in setup.giant.indices) != sorted(
+            [GIANT_ID, SYNTH_GIANT]):
+        raise AssertionError(f"giants {[ids[g] for g in setup.giant.indices]}")
+    out = dict(seed=seed, batch_lg_arena=setup.budget.n_lg_edges)
+    for g in setup.giant.indices:
+        n, e, l = setup.store.counts(g)
+        out[ids[g]] = dict(atoms=n, bonds=e, lg_edges=l,
+                           in_train=g in setup.train_idx)
+        say("giant", material=ids[g], atoms=n, bonds=e, lg_edges=l,
+            batch_lg_arena=setup.budget.n_lg_edges,
+            in_train=g in setup.train_idx, seed=seed)
+    n_giant_steps = len(set(setup.giant.indices) & set(setup.train_idx))
+    t0 = time.perf_counter()
+    with open(root / "train_giant.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        summary, counts, losses, _, replays = run_counted(
+            lambda: cli_train.main(argv(seed)))
+    secs = time.perf_counter() - t0
+    steps = summary["optimizer_steps"]
+    # one step a giant in the train split: no bootstrap, one epoch
+    packed = steps - n_giant_steps
+    loss = torch.cat(losses).cpu().numpy() if losses else np.zeros(0)
+    if len(loss) != steps or not np.isfinite(loss).all():
+        raise AssertionError(f"giant train: {len(loss)} losses for {steps} "
+                             f"steps, finite {np.isfinite(loss).all()}")
+    # the giant's step runs eagerly, the packed steps replay
+    expect_replays("giant train", replays, packed - WARMUP_STEPS)
+    want = 2 * layers * steps
+    if counts["attn_eproj_bwd"] != want or counts["csr_segment_sum"] != want:
+        raise AssertionError(f"giant train: {counts}, expected {want} of "
+                             "kernels 6 and 7")
+    out["train"] = dict(counts=counts, steps=steps, cli_seconds=secs)
+    say("giant", run="cli.train", edge_shards=1, optimizer_steps=steps,
+        giant_steps=n_giant_steps, step_replays=replays["train"],
+        kernel_launches=json.dumps(counts), cli_seconds=f"{secs:.2f}")
+    ens = root / "trained_giant"
+    pred = root / "pred_giant.json"
+    # the whole store: a budget planned over it leaves the giant out
+    mids = [GIANT_ID, *[m for m in setup.store.material_ids
+                        if m != GIANT_ID]]
+    with open(root / "predict_giant.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        reset_counts()
+        cli_predict.main(["--mode", "materials", "--materials",
+                          ",".join(mids), "--batch-size", str(BATCH),
+                          "--data-dir", str(gdata), "--ensemble-dir",
+                          str(ens), "--giant-shards", "1", "--output-json",
+                          str(pred)])
+        pcounts = read_counts()
+    preds = json.loads(pred.read_text())["predictions"]
+    mu = np.asarray([p["mu"] for p in preds], np.float64)
+    # the packed rows first, the giants' boundary rows last
+    tail = sorted(p["material_id"] for p in preds[-2:])
+    if (tail != sorted([GIANT_ID, SYNTH_GIANT]) or len(preds) != len(mids)
+            or not np.isfinite(mu).all()):
+        raise AssertionError(f"giant predict: {len(preds)} rows, last two "
+                             f"{tail}, finite {np.isfinite(mu).all()}")
+    fwd = pcounts["attn_eproj_fwd"]
+    expect_counts("giant predict", pcounts, {"attn_eproj_fwd": fwd})
+    n_batches = -(-(len(mids) - 2) // BATCH)
+    if fwd % (2 * layers) or fwd < 2 * layers * (n_batches + 2):
+        raise AssertionError(f"giant predict: kernel 5 launched {fwd} "
+                             "times, not 2·layers a forward of the packed "
+                             "batches and the giant")
+    ev = root / "eval_giant"
+    with open(root / "evaluate_giant.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        reset_counts()
+        res = cli_evaluate.main(
+            ["--ensemble-dir", str(ens), "--data-dir", str(gdata),
+             "--output-dir", str(ev), "--no-plots", "--batch-size",
+             str(BATCH), "--seed", str(seed), "--ensemble-size", "1",
+             "--eval-split", "train", "--giant-shards", "1"])
+        ecounts = read_counts()
+    if not np.isfinite(res["overall"]["mae"]) or \
+            ecounts["attn_eproj_fwd"] <= 0:
+        raise AssertionError(f"giant evaluate: {res['overall']}, {ecounts}")
+    giant_mu = {p["material_id"]: p["mu"] for p in preds[-2:]}
+    out["predict"] = dict(counts=pcounts, giant_mu=giant_mu)
+    out["evaluate"] = dict(counts=ecounts, mae=res["overall"]["mae"])
+    say("giant", run="cli.predict", giant_shards=1, rows=len(preds),
+        giant_mu=json.dumps({k: np.round(v, 3).tolist()
+                             for k, v in giant_mu.items()}),
+        kernel_launches=json.dumps(pcounts))
+    say("giant", run="cli.evaluate", giant_shards=1, split="train",
+        mae=f"{res['overall']['mae']:.4f}",
+        kernel_launches=json.dumps(ecounts))
+
+    # S = 2 over the pair against the unpartitioned graph on the card
+    t = setup.transformer
+    lrs = [(MESH_LR, MESH_LR)]
+    graphs = {}
+    for g in setup.giant.indices:
+        mid = ids[g]
+        gset = build_giant_set(setup.store, [g], 2)
+        plan, bb, tb = gset.plan, gset.bbs[g], gset.tables[g]
+        single = epoch_batches(setup.store, [g], gset.budget,
+                               shuffle=False)[0]
+        cfg, _ = check_config(setup, [single], "eproj")
+        state = _state(init_alignn(np.random.default_rng(SEED + 70), cfg))
+        graphs[mid] = (g, single, cfg, state)
+        f32_ref = None
+        for dtype in ("float32", "bfloat16"):
+            hyper = TrainHyper(feature_jitter_std=0.0, compute_dtype=dtype)
+            pair.run(_rank_reset)
+            ranks = pair.run(boundary_steps_rank, state, cfg, hyper,
+                             t.means, t.stds, plan, [[bb]], [[tb]], lrs,
+                             MIN_LOGVAR_FLOOR, every_rank=True)
+            counts = pair.run(_rank_counts, every_rank=True)
+            want = 2 * layers
+            for r, c_r in enumerate(counts):
+                expect_counts(f"boundary {mid} {dtype} rank {r}", c_r, {
+                    "attn_eproj_fwd": 2 * want, "attn_eproj_bwd": want,
+                    "csr_segment_sum": want})
+            item = 4 if dtype == "float32" else 2
+            per_conv = plan.comm_bytes_per_conv(cfg.hidden, item,
+                                                projected=False)
+            # the eval forward, the train forward and its backward
+            wire = 3 * layers * sum(per_conv.values())
+            for r, res_r in enumerate(ranks):
+                if res_r["sent_bytes"] != wire:
+                    raise AssertionError(
+                        f"boundary {mid} {dtype} rank {r}: sent "
+                        f"{res_r['sent_bytes']} bytes, plan {wire}")
+            model = _card_model(cfg, state, dev)
+            db = DeviceBatch.from_batch(single, dev)
+            fwd = np.stack([o.cpu().numpy() for o in Forward(
+                MIN_LOGVAR_FLOOR, dtype).eager(cast_model(model, dtype),
+                                                db)])
+            got = np.stack(ranks[0]["forward"])
+            if f32_ref is None:
+                if not np.allclose(got, fwd, rtol=SERVE_RTOL,
+                                   atol=SERVE_ATOL):
+                    raise AssertionError(f"boundary {mid} {dtype} forward: "
+                                         f"{got} vs {fwd}")
+                fwd_share = float(np.abs(got - fwd).max() / (
+                    SERVE_ATOL + SERVE_RTOL * np.abs(fwd).max()))
+            else:
+                fwd_share = near_as_ref(f"boundary {mid} {dtype} forward",
+                                          got, fwd, f32_ref[0], 1e-2)
+            ref = TrainStep(model, hyper, t.means, t.stds)
+            ref_m = [float(x) for x in ref(single, None, *lrs[0])]
+            ref_grads = {nm: p.grad.detach().float().cpu().numpy()
+                         for nm, p in zip(ref.names, ref.params)}
+            worst = compare_layouts(f"boundary {mid}", dtype,
+                                    ranks[0]["metrics"][0], ref_m,
+                                    ranks[0]["grads"], ref_grads,
+                                    f32_ref and f32_ref[1:])
+            f32_ref = f32_ref or (fwd, ref_m, ref_grads)
+            s2 = pair.run(_rank_boundary_wall, state, cfg, hyper, t.means,
+                          t.stds, plan, bb, tb, GIANT_TIMED)
+            out[f"boundary_{mid}_{dtype}"] = dict(
+                counts=counts[0], bn=plan.bn, bl=plan.bl,
+                sent_bytes=ranks[0]["sent_bytes"], plan_bytes=wire,
+                forward_share_of_limit=fwd_share, s2_wall_ms=s2, **worst)
+            say("giant", run="boundary", material=mid, shards=2,
+                dtype=dtype, bn=plan.bn, bl=plan.bl,
+                comm_bytes_per_conv=json.dumps(per_conv),
+                sent_bytes_rank0=ranks[0]["sent_bytes"],
+                sent_bytes_rank1=ranks[1]["sent_bytes"],
+                forward_share_of_limit=f"{fwd_share:.3f}",
+                kernel_launches_rank0=json.dumps(counts[0]),
+                s2_step_wall_ms=f"{s2:.2f}", **worst)
+    if out[f"boundary_{SYNTH_GIANT}_float32"]["sent_bytes"] <= 0:
+        raise AssertionError(f"{SYNTH_GIANT}: the exchange sent nothing")
+    # S = 1 in this process: the boundary step's wall and device time
+    # beside the unpartitioned step's on the same graph
+    g, single, cfg, state = graphs[SYNTH_GIANT]
+    one = Rank(make_mesh(1, 1, devices=[str(dev)]), 0)
+    gset1 = build_giant_set(setup.store, [g], 1)
+    hyper = TrainHyper(feature_jitter_std=0.0)
+    s1 = _rank_boundary_wall(one, state, cfg, hyper, t.means, t.stds,
+                             gset1.plan, gset1.bbs[g], gset1.tables[g],
+                             GIANT_TIMED)
+    eager = TrainStep(_card_model(cfg, state, dev), hyper, t.means, t.stds)
+    eager_ms, _ = chunk_ms(synced(lambda: eager(single, None, MESH_LR,
+                                                MESH_LR)), reps=GIANT_TIMED)
+    captured = make_train_step(_card_model(cfg, state, dev), hyper, t.means,
+                               t.stds, dev)
+    cap_ms, _ = chunk_ms(synced(lambda: captured(single, None, MESH_LR,
+                                                 MESH_LR)), reps=GIANT_TIMED)
+    captured.close()
+    from gnnep_tpu_torch.parallel.boundary_shard import RankBoundaryBatch
+    from gnnep_tpu_torch.parallel.train_step import BoundaryTrainStep
+    base = TrainStep(_card_model(cfg, state, dev), hyper, t.means, t.stds)
+    base.set_lr(MESH_LR, MESH_LR)
+    bstep = BoundaryTrainStep(base, one, gset1.plan)
+    rb = RankBoundaryBatch.from_boundary(gset1.bbs[g], gset1.tables[g], 0,
+                                         dev)
+    share, dev_ms = profile_run(synced(lambda: bstep(rb)), "boundary_s1",
+                                "float32", 1, counted=True)
+    out["walls"] = dict(s1_wall_ms=s1, unpartitioned_eager_wall_ms=eager_ms,
+                        unpartitioned_captured_wall_ms=cap_ms,
+                        s1_device_ms=dev_ms, s1_busy_share=share)
+    say("giant", run="walls", material=SYNTH_GIANT, dtype="float32",
+        s1_boundary_step_wall_ms=f"{s1:.2f}",
+        s1_boundary_step_device_ms=f"{dev_ms:.3f}",
+        unpartitioned_eager_step_wall_ms=f"{eager_ms:.2f}",
+        unpartitioned_captured_step_wall_ms=f"{cap_ms:.2f}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4428,10 +5215,21 @@ def main() -> int:
                                    "kv+e")}
         featurized = phase_featurize(root, ens, cfg.layers)
         knn = phase_knn(root, data, cfg.layers, setup, train_batches, dev)
+        from gnnep_tpu_torch.parallel.mesh import World
+        t0 = time.perf_counter()
+        with World(pair_mesh(dev)) as pair:
+            say("parallel", ranks=2, backend="gloo",
+                world_start_seconds=f"{time.perf_counter() - t0:.2f}")
+            meshed = phase_mesh(pair, root, data, setup, train_batches, dev,
+                                cfg.layers)
+            member_par = phase_member_parallel(pair, root, data, setup,
+                                               train_batches, dev,
+                                               cfg.layers)
+            giant = phase_giant(pair, root, data, dev, cfg.layers)
+        say("parallel", phases_seconds=f"{time.perf_counter() - t0:.2f}")
         resumed = phase_resume(root, data, cfg.layers, setup, train_batches,
                                dev)
-        isolated = phase_isolation(root, data, cfg.layers, setup,
-                                   root / "trained_float32")
+        isolated = phase_isolation(root, data, cfg.layers, setup)
         profiled = phase_profile(root, data, cfg.layers)
         bundled = phase_bundle(root, data, ens, rung_ens, cfg, batches, dev)
         converted = phase_convert(root, data, ens, cfg, dev)
@@ -4504,6 +5302,17 @@ def main() -> int:
         rec["launches_profile"] = profiled["launches"][rec["name"]]
     kernels[0]["launches_bundle"] = bundled["eproj_float32"]["launches"]
     kernels[0]["launches_convert"] = converted["launches"]
+    # the f32 runs of the parallel/ group's paths: the aligned step (rank
+    # 0 of the gloo pair), vmap members, the shard pair's rank 0, the giant
+    # trained through cli.train, the S = 2 boundary step's rank 0
+    for rec in kernels[:3]:
+        name = rec["name"]
+        rec["launches_mesh"] = meshed["float32"]["counts"][name]
+        rec["launches_vmap"] = member_par["vmap"]["counts"][name]
+        rec["launches_shard"] = member_par["shard_pair"]["counts"][name]
+        rec["launches_giant"] = giant["train"]["counts"][name]
+        rec["launches_boundary"] = giant[
+            f"boundary_{SYNTH_GIANT}_float32"]["counts"][name]
     for rung, spec in RUNGS.items():
         fwd = record(spec["fwd"], rung_cases[spec["fwd"]],
                      rung_serve[rung]["float32"],
@@ -4546,6 +5355,17 @@ def main() -> int:
                    for d, r in resumed.items()},
         "isolation": isolated, "profile": profiled, "bundle": bundled,
         "convert": converted,
+        "parallel": {"mesh": {k: {kk: vv for kk, vv in v.items()
+                                  if kk != "counts"}
+                              for k, v in meshed.items()},
+                     "member_parallel": {
+                         k: {kk: vv for kk, vv in v.items()
+                             if kk != "counts"}
+                         for k, v in member_par.items()},
+                     "giant": {k: ({kk: vv for kk, vv in v.items()
+                                    if kk != "counts"}
+                                   if isinstance(v, dict) else v)
+                               for k, v in giant.items()}},
         "span": {"edge_span64": span_cfg.edge_span64,
                  "lg_span64": span_cfg.lg_span64,
                  "serve_launches_attn_eproj_fwd": span_serve,

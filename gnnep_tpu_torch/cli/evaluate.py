@@ -38,7 +38,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bfloat16 runs the trunk in bf16; float32 matches "
                         "reference eval numerics (default)")
     p.add_argument("--giant-shards", type=int, default=0,
-                   help="not ported yet: values > 0 raise")
+                   help="route graphs exceeding the batch budget through "
+                        "the boundary-exchange edge partition over N ranks "
+                        "(a card each; gloo processes on the CPU) instead "
+                        "of ballooning every batch's arenas (0 = off)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     # reference-CLI compatibility: architecture comes from the embedded
     # checkpoint config here (the reference shape-sniffs and needs these);

@@ -3,10 +3,13 @@
     python -m gnnep_tpu_torch.cli.train --data-dir data/mp_gnn --ensemble-size 5
 
 Runs on the GPU (`--device cuda`, the default) unless `--device cpu` is
-given; without a GPU the default raises. Options that select a path this
-port does not run yet raise NotImplementedError naming ROADMAP.md (see
-`train.ensemble.check_supported`); `--prng-impl` and `--flat-opt` are TPU
-stream and layout choices, accepted and ignored.
+given; without a GPU the default raises. Every flag runs: on the card a
+mesh slot (`--data-shards` × `--edge-shards`) or a shard-mode member takes
+its own card (fewer visible cards raise a ValueError), on the CPU any
+number of slots run as gloo processes. A mesh and member parallelism
+conflict, as in the JAX package (`train.ensemble.check_supported`);
+`--prng-impl` and `--flat-opt` are TPU stream and layout choices,
+accepted and ignored (`--flat-opt` with giants raises, as in JAX).
 """
 from __future__ import annotations
 
@@ -26,9 +29,6 @@ def _parse_list(raw: Optional[str], cast, name: str, n: int) -> Optional[List]:
     if len(parts) != n:
         raise SystemExit(f"{name} expects {n} entries, got {len(parts)}")
     return [cast(p) for p in parts]
-
-
-_NOT_PORTED = "Not ported yet (ROADMAP.md): "
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -100,14 +100,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--member-parallel",
                    choices=["sequential", "vmap", "shard"],
                    default="sequential",
-                   help=_NOT_PORTED + "vmap and shard raise")
+                   help="vmap: the members in lock-step on one device, "
+                        "their steps one captured graph; shard: one "
+                        "member a slot (a card each, or gloo processes "
+                        "on the CPU)")
     p.add_argument("--giant-graphs", choices=["error", "boundary"],
                    default="error",
-                   help=_NOT_PORTED + "'boundary' raises")
+                   help="'boundary' sizes batch arenas to typical statistics "
+                        "and trains/predicts graphs exceeding them via the "
+                        "boundary-exchange edge partition over --edge-shards "
+                        "ranks (default: such graphs balloon the budget or "
+                        "error)")
     p.add_argument("--data-shards", type=int, default=1,
-                   help=_NOT_PORTED + "values > 1 raise")
+                   help="Data-parallel slots per member: each optimizer "
+                        "step takes data-shards × edge-shards packed "
+                        "sub-batches, one rank process a slot, one "
+                        "gradient all-reduce (1 = single device)")
     p.add_argument("--edge-shards", type=int, default=1,
-                   help=_NOT_PORTED + "values > 1 raise")
+                   help="Edge-partition slots (the mesh's inner axis). "
+                        "With --giant-graphs boundary this is also the "
+                        "boundary-exchange partition width for graphs "
+                        "exceeding the batch budget")
     p.add_argument("--member-isolation", choices=["none", "process"],
                    default="none",
                    help="'process' trains each member in a subprocess "

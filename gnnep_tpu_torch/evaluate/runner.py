@@ -8,10 +8,14 @@ the architecture contract, splits re-derive deterministically from
 coverage/width use the saved q, and sharpness curves recompute conformity
 scores on the calibration split.
 
-Members run on one device through the eval forward (`train.loop.Forward`),
-as `infer.predict` serves them. The run uses one `Forward` for both of its
-splits, which are packed to one budget, so on the card each member captures
-its forward once and replays it on every later batch of either split.
+Members run through the eval forward (`train.loop.Forward`), as
+`infer.predict` serves them, their batches fanned out over the visible
+cards (`parallel.giant.MemberRows`). The run uses one
+`Forward` for both of its splits, which are packed to one budget, so on
+the card each member captures its forward once and replays it on every
+later batch of either split. With `giant_shards` > 0, graphs beyond the
+typical batch budget go through the boundary forward over that many edge
+ranks (`parallel.giant`), their rows after the packed ones.
 """
 from __future__ import annotations
 
@@ -29,8 +33,9 @@ from ..infer.predict import Ensemble
 from ..models.alignn import Alignn
 from ..train.artifacts import load_conformal
 from ..train.calibrate import apply_conformal_intervals
-from ..train.loop import (MIN_LOGVAR_FLOOR, Forward, collect_predictions,
-                          make_forward)
+from ..parallel.giant import MemberRows, build_giant_set, classify_giants
+from ..parallel.mesh import visible_cards
+from ..train.loop import MIN_LOGVAR_FLOOR
 from ..train.metrics import TARGET_NAMES, error_stats
 from . import metrics as M
 
@@ -54,17 +59,20 @@ class EvalConfig:
     # 'float32' (default, reference-parity numerics) or 'bfloat16' (the
     # trunk in bf16, as `cli.predict --compute-dtype bfloat16`)
     compute_dtype: str = "float32"
-    # graphs beyond the batch budget through the boundary-exchange edge
-    # partition over N device ranks: not ported yet, values > 0 raise
+    # route graphs exceeding the typical-statistics batch budget through
+    # the boundary-exchange edge partition over N device ranks (the
+    # evaluate side of train's --giant-graphs boundary / predict's
+    # --giant-shards); 0 = the budget covers every graph (cover_all)
     giant_shards: int = 0
 
 
-def _collect_members(forward: Forward, runs: Sequence[Alignn], batches):
-    """[M, N, T] member means and σ and [N, T] targets over `batches`."""
+def _collect_members(rows: MemberRows, runs: Sequence[Alignn], batches,
+                     giant_ids: Sequence[int] = ()):
+    """[M, N, T] member means and σ and [N, T] targets over `batches`, then
+    over `giant_ids` (`parallel.giant.MemberRows`)."""
     means, stds, targets = [], [], None
     for run in runs:
-        mean_z, sigma_z, targets, _ = collect_predictions(forward, run,
-                                                          batches)
+        mean_z, sigma_z, targets, _ = rows(run, batches, giant_ids)
         means.append(mean_z)
         stds.append(sigma_z)
     means, stds = np.stack(means), np.stack(stds)
@@ -85,11 +93,6 @@ def run_evaluation(cfg: EvalConfig, store: Optional[GraphStore] = None,
     """Evaluate the ensemble in `cfg.ensemble_dir` on `device` (None: CUDA,
     which must then be available) → the metrics dict, also written to
     `{output_dir}/{split}/metrics.json`."""
-    if cfg.giant_shards > 0:
-        raise NotImplementedError(
-            "giant_shards > 0 (the boundary-exchange path for graphs beyond "
-            "the batch budget) waits for the giant-graph slice; see "
-            "ROADMAP.md")
     ensemble = Ensemble.load(cfg.ensemble_dir, device)
     transformer = ensemble.transformer
     conf = None
@@ -126,21 +129,39 @@ def run_evaluation(cfg: EvalConfig, store: Optional[GraphStore] = None,
     if not eval_idx:
         raise ValueError(f"Evaluation split '{split_tag}' is empty.")
 
-    budget = BatchBudget.plan(std_store, range(std_store.n_graphs),
-                              cfg.batch_size, cover_all=True)
-    eval_batches = epoch_batches(std_store, eval_idx, budget, shuffle=False)
-    calib_batches = (epoch_batches(std_store, calib_idx, budget,
-                                   shuffle=False) if calib_idx else [])
+    gset = None
+    if cfg.giant_shards > 0:
+        cards = visible_cards(ensemble.device)
+        if cards is not None and cfg.giant_shards > cards:
+            raise ValueError(f"giant_shards={cfg.giant_shards} exceeds the "
+                             f"{cards} visible devices")
+        # the fixpoint classification shared with train's prepare(): one
+        # huge graph inflates the budget and can hide smaller giants
+        _, giant_all, budget = classify_giants(
+            std_store, range(std_store.n_graphs),
+            lambda pop, ca: BatchBudget.plan(std_store, pop, cfg.batch_size,
+                                             cover_all=ca))
+        if giant_all:
+            gset = build_giant_set(std_store, giant_all, cfg.giant_shards)
+    else:
+        budget = BatchBudget.plan(std_store, range(std_store.n_graphs),
+                                  cfg.batch_size, cover_all=True)
+    eval_norm, eval_giant = gset.split(eval_idx) if gset else (eval_idx, [])
+    calib_norm, calib_giant = (gset.split(calib_idx) if gset
+                               else (calib_idx, []))
+    eval_batches = (epoch_batches(std_store, eval_norm, budget,
+                                  shuffle=False) if eval_norm else [])
+    calib_batches = (epoch_batches(std_store, calib_norm, budget,
+                                   shuffle=False) if calib_norm else [])
     runs = ensemble.runs(budget, cfg.compute_dtype)
-    verify_win64(eval_batches, runs[0].cfg)
-    forward = make_forward(cfg.min_logvar_floor, cfg.compute_dtype)
-    try:
-        means_m, stds_m, targets = _collect_members(forward, runs,
-                                                    eval_batches)
-        calib = (_collect_members(forward, runs, calib_batches)
-                 if calib_batches else None)
-    finally:
-        forward.close()
+    if eval_batches:
+        verify_win64(eval_batches, runs[0].cfg)
+    with MemberRows(cfg.min_logvar_floor, cfg.compute_dtype,
+                    ensemble.device, gset) as rows:
+        means_m, stds_m, targets = _collect_members(rows, runs, eval_batches,
+                                                    eval_giant)
+        calib = (_collect_members(rows, runs, calib_batches, calib_giant)
+                 if calib_idx else None)
     t_dim = targets.shape[1]
     target_names = [TARGET_NAMES.get(t, f"target_{t}") for t in range(t_dim)]
 
@@ -292,3 +313,4 @@ def run_evaluation(cfg: EvalConfig, store: Optional[GraphStore] = None,
     print(f"Saved ensemble evaluation for {split_tag} split to {out_dir}:")
     print(f"  Metrics -> {out_dir / 'metrics.json'}")
     return result
+

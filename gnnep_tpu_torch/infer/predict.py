@@ -6,8 +6,8 @@ and `custom` runs the dataset-free path on pymatgen structure dicts
 (featurized on the fly) or precomputed raw graph arrays. Uncertainty is the
 log-normal linear-space σ with a 90 % Gaussian CI clipped at zero.
 
-Not yet ported: `giant_shards > 0` (the giant-graph slice) raises
-`NotImplementedError`.
+`giant_shards > 0` routes graphs beyond the batch budget through the
+boundary-exchange partition (`parallel.giant`).
 """
 from __future__ import annotations
 
@@ -28,8 +28,9 @@ from ..data.transforms import FeatureScaler, LogTransformer
 from ..models.alignn import Alignn
 from ..train.artifacts import load_member, load_scaler_state, member_paths
 from ..train.calibrate import ensemble_mixture
-from ..train.loop import (MIN_LOGVAR_FLOOR, cast_model, collect_predictions,
-                          make_forward, reconcile_win64, with_config)
+from ..parallel.giant import MemberRows, build_giant_set, classify_giants
+from ..train.loop import (MIN_LOGVAR_FLOOR, cast_model, reconcile_win64,
+                          with_config)
 from ..utils.device import resolve_device
 
 Z_SCORE_90 = 1.6449  # Φ⁻¹(0.95)
@@ -93,24 +94,39 @@ class Ensemble:
                 compute_dtype: str = "float32") -> List[Dict[str, Any]]:
         """Mixture predictions for `indices` of an already-standardized store.
         `compute_dtype='bfloat16'` runs the trunk in bf16; the default f32
-        matches the reference's inference numerics."""
+        matches the reference's inference numerics.
+
+        `giant_shards > 0` routes graphs beyond the typical-statistics
+        batch budget through the boundary-exchange partition over that
+        many edge ranks (`parallel.giant`; one card each on the card)
+        instead of letting one outlier balloon every batch's arenas; their
+        rows follow the packed rows (every member uses the same order)."""
+        idx = [int(i) for i in indices]
+        gset = None
+        giant_ids: List[int] = []
         if giant_shards > 0:
-            raise NotImplementedError(
-                "giant_shards > 0 (the boundary-exchange path for graphs "
-                "beyond the batch budget) waits for the giant-graph slice; "
-                "see ROADMAP.md")
-        budget, batches = pack_batches(store, indices, batch_size)
+            # the fixpoint classification shared with train and evaluate
+            idx, giant_ids, budget = classify_giants(
+                store, idx,
+                lambda pop, ca: BatchBudget.plan(
+                    store, pop, min(batch_size, max(len(pop), 1)),
+                    cover_all=ca))
+            if giant_ids:
+                gset = build_giant_set(store, giant_ids, giant_shards)
+            batches = (epoch_batches(store, idx, budget, shuffle=False)
+                       if idx else [])
+        else:
+            budget, batches = pack_batches(store, idx, batch_size)
         runs = self.runs(budget, compute_dtype)
-        verify_win64(batches, runs[0].cfg)
-        forward = make_forward(min_logvar_floor, compute_dtype)
+        if batches:
+            verify_win64(batches, runs[0].cfg)
         member_means, member_vars = [], []
-        order = ys = None
-        for run in runs:
-            mean_z, sigma_z, ys, order = collect_predictions(
-                forward, run, batches)
-            member_means.append(mean_z)
-            member_vars.append(sigma_z ** 2)
-        forward.close()
+        with MemberRows(min_logvar_floor, compute_dtype, self.device,
+                        gset) as rows:
+            for run in runs:
+                mean_z, sigma_z, ys, order = rows(run, batches, giant_ids)
+                member_means.append(mean_z)
+                member_vars.append(sigma_z ** 2)
         return format_mixture_results(member_means, member_vars, order, ys,
                                       self.transformer, store)
 

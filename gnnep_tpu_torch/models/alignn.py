@@ -381,9 +381,7 @@ def _shared_trunk(model: Alignn, batch: DeviceBatch,
     else:
         from ..ops.dense_attention import transformer_conv_table
 
-        rung = dict(heads=cfg.heads, fused=cfg.conv_impl == "fused",
-                    attn_fused=cfg.attn_fused, attn_eproj=cfg.attn_eproj,
-                    dropout_rate=drop, generator=gen)
+        rung = conv_rung(cfg, drop, gen)
 
         def lg_conv(conv, state, feats):
             return transformer_conv_table(
@@ -401,6 +399,37 @@ def _shared_trunk(model: Alignn, batch: DeviceBatch,
                 attn_span=cfg.attn_span and cfg.edge_span64 > 0,
                 span_lo=batch.node_span_lo, **rung)
 
+    node_state, edge_state = interaction_blocks(
+        model, node_state, edge_state, angle_emb, lg_conv, atom_conv,
+        has_lg, has_edges, drop, gen, tap)
+    g = batch.n_graphs
+    pooled = segment_mean(node_state, batch.node_graph, g + 1)[:g]
+    return readout(model, pooled, batch.globals_, batch.sg_num, drop, gen,
+                   tap)
+
+
+def conv_rung(cfg: AlignnConfig, drop: float,
+              gen: Optional[torch.Generator]) -> dict:
+    """The keyword arguments that pick `transformer_conv_table`'s rung and
+    its attention dropout under `cfg`."""
+    return dict(heads=cfg.heads, fused=cfg.conv_impl == "fused",
+                attn_fused=cfg.attn_fused, attn_eproj=cfg.attn_eproj,
+                dropout_rate=drop, generator=gen)
+
+
+ConvFn = Callable[[TransformerConv, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def interaction_blocks(model: Alignn, node_state: torch.Tensor,
+                       edge_state: torch.Tensor, angle_emb: torch.Tensor,
+                       lg_conv: ConvFn, atom_conv: ConvFn,
+                       has_lg: torch.Tensor, has_edges: torch.Tensor,
+                       drop: float, gen: Optional[torch.Generator],
+                       tap: Optional[Callable[[str, torch.Tensor], None]]
+                       = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The L interleaved blocks → (node_state, edge_state); `lg_conv` and
+    `atom_conv(conv, state, feats)` run the two convs over whatever layout
+    the caller holds (the packed arenas, or a rank's boundary arena)."""
     for li, (eb, nb) in enumerate(zip(model.edge_blocks, model.node_blocks)):
         # EdgeUpdate: line-graph conv with angle features
         out = lg_conv(eb.conv, edge_state, angle_emb).to(edge_state.dtype)
@@ -418,16 +447,22 @@ def _shared_trunk(model: Alignn, batch: DeviceBatch,
         if tap is not None:
             tap(f"layer{li}_edge", edge_state)
             tap(f"layer{li}_node", node_state)
+    return node_state, edge_state
 
-    g = batch.n_graphs
-    pooled = segment_mean(node_state, batch.node_graph, g + 1)[:g]
+
+def readout(model: Alignn, pooled: torch.Tensor, globals_: torch.Tensor,
+            sg_num: torch.Tensor, drop: float,
+            gen: Optional[torch.Generator],
+            tap: Optional[Callable[[str, torch.Tensor], None]] = None
+            ) -> torch.Tensor:
+    """Pooled [G, H] ‖ globals ‖ space-group one-hot → feat_proj → the
+    shared embedding [G, H]."""
     # jax.nn.one_hot gives a zero row for sg_num 0 (index −1);
     # torch.nn.functional.one_hot would raise, so build it directly
-    sg = batch.sg_num
-    valid = (sg >= 1) & (sg <= N_SG)
-    sg_one_hot = (torch.arange(1, N_SG + 1, device=sg.device)[None, :]
-                  == torch.where(valid, sg, 0)[:, None]).to(pooled.dtype)
-    feats = _dropout(torch.cat([pooled, batch.globals_, sg_one_hot], dim=-1),
+    valid = (sg_num >= 1) & (sg_num <= N_SG)
+    sg_one_hot = (torch.arange(1, N_SG + 1, device=sg_num.device)[None, :]
+                  == torch.where(valid, sg_num, 0)[:, None]).to(pooled.dtype)
+    feats = _dropout(torch.cat([pooled, globals_, sg_one_hot], dim=-1),
                      drop, gen)
     shared = _dropout(torch.relu(model.feat_proj(feats)), drop, gen)
     if tap is not None:

@@ -11,7 +11,7 @@ replay: the counts go on saying how often each kernel ran on the card.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, TypeVar
+from typing import Callable, Dict, Optional, Sequence, TypeVar, Union
 
 import torch
 
@@ -43,28 +43,33 @@ def launch_counts() -> Dict[str, int]:
 
 
 class CountedGraph:
-    """One CUDA graph of kind 'train' or 'eval'. `capture(fn, generator)`
+    """One CUDA graph of kind 'train' or 'eval' (None: a part of a step
+    whose replays `replays` does not count, a mesh step's optimizer tail). `capture(fn, generator)`
     records `fn` (its outputs are the graph's static outputs, in its
-    private memory pool), with `generator`'s draws registered so that each
-    replay draws the next numbers of its stream; `replay()` launches it on
+    private memory pool), with `generator`'s draws (or each of a list of
+    generators') registered so that each replay draws the next numbers of
+    its stream; `replay()` launches it on
     the current stream. A failed capture raises."""
 
-    def __init__(self, kind: str):
-        if kind not in replays:
+    def __init__(self, kind: Optional[str]):
+        if kind is not None and kind not in replays:
             raise ValueError(f"kind must be one of {sorted(replays)}")
         self.kind = kind
         self.graph = torch.cuda.CUDAGraph()
         self.delta = [0] * len(_COUNTERS)
 
     def capture(self, fn: Callable[[], T],
-                generator: Optional[torch.Generator] = None) -> T:
+                generator: Union[None, torch.Generator,
+                                 Sequence[torch.Generator]] = None) -> T:
         """Capture on a side stream ordered after the current stream's
         work. Unlike `torch.cuda.graph`, no device synchronisation and no
         `empty_cache` first: at the flagship those cost more than the
         capture itself (PERF.md §6); the owner empties the cache when it
         frees its graphs."""
-        if generator is not None:
-            self.graph.register_generator_state(generator)
+        gens = generator if isinstance(generator, (list, tuple)) else (
+            [] if generator is None else [generator])
+        for g in gens:
+            self.graph.register_generator_state(g)
         before = _read()
         current = torch.cuda.current_stream()
         side = torch.cuda.Stream(current.device)
@@ -89,7 +94,8 @@ class CountedGraph:
         for (mod, attr), n in zip(_COUNTERS, self.delta):
             if n:
                 setattr(mod, attr, getattr(mod, attr) + n)
-        replays[self.kind] += 1
+        if self.kind is not None:
+            replays[self.kind] += 1
 
     def reset(self) -> None:
         """Free the graph; its pool is free once its outputs are dropped,

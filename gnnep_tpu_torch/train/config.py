@@ -1,10 +1,10 @@
 """Training configuration: `gnnep_tpu.train.config.TrainConfig`, field for
 field, so a configuration means the same in both packages.
 
-Fields that select a path this port does not run yet (`member_parallel`
-vmap/shard, `data_shards`/`edge_shards` > 1, `giant_graphs='boundary'`)
-make `train.ensemble` raise, naming ROADMAP.md. `prng_impl` and `flat_opt` are TPU stream and layout
-choices; the port accepts and ignores them."""
+Every field selects a path the port runs (the multi-device ones through
+`parallel/`). `prng_impl` and `flat_opt` are TPU stream and layout
+choices; the port accepts and ignores them (`flat_opt` with giant graphs
+raises, as in the JAX package)."""
 from __future__ import annotations
 
 import dataclasses
@@ -98,8 +98,9 @@ class TrainConfig:
     checkpoint_every: int = 0            # save mid-training state every N epochs
     resume: bool = False                 # resume member training from checkpoints
     member_parallel: str = "sequential"  # 'sequential' | 'vmap' (one device,
-                                         # table conv) | 'shard' (one member
-                                         # per device, fused kernels)
+                                         # one captured graph, the rung's
+                                         # kernels) | 'shard' (one member
+                                         # per slot)
     # production distributed training (SURVEY §2g): each member trains over
     # a Mesh(("data","edge")) of data_shards × edge_shards devices via the
     # graph-aligned multi-chip step — one packed sub-batch per device slot,

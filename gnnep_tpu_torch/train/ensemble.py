@@ -1,6 +1,9 @@
 """Deep-ensemble training: setup → members → calibration → artifacts
-(the counterpart of `gnnep_tpu.train.ensemble`, members trained one after
-another on one device).
+(the counterpart of `gnnep_tpu.train.ensemble`): members trained one after
+another on one device or over a mesh of rank processes (`--data-shards` /
+`--edge-shards`), or member-parallel (`--member-parallel vmap|shard`),
+with graphs beyond the batch budget routed through the boundary exchange
+(`--giant-graphs boundary`).
 
 Orchestration parity with the reference trainer's `main`
 (`scripts/train.py:1948-2163`): grouped splits + K-fold member validation,
@@ -43,30 +46,29 @@ from .bins import compute_bin_statistics
 from .calibrate import (apply_conformal_intervals, conformal_calibration,
                         ensemble_mixture, fit_affine_debias)
 from .config import TrainConfig
-from .loop import collect_predictions, make_forward
-from .member import train_member
+from .member import member_mesh, train_member, train_member_on_mesh
+from ..parallel.ensemble_vmap import train_members_vmapped
+from ..parallel.giant import (GiantSet, MemberRows, build_giant_set,
+                              classify_giants)
+from ..parallel.mesh import WorldPool
 from .metrics import error_stats
 
 N_SG_ONE_HOT = 230
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for every option that selects a path the
-    port does not run yet (the multi-device group), on any device; none of
-    them runs something else in its place. The rung flags
-    (`--no-attn-fused`, `--no-attn-eproj`) run their own kernels."""
-    unported = []
-    if cfg.member_parallel in ("vmap", "shard"):
-        unported.append(f"--member-parallel {cfg.member_parallel}")
-    if max(int(cfg.data_shards), 1) * max(int(cfg.edge_shards), 1) > 1:
-        unported.append(f"--data-shards {cfg.data_shards} / --edge-shards "
-                        f"{cfg.edge_shards}")
-    if cfg.giant_graphs == "boundary":
-        unported.append("--giant-graphs boundary")
-    if unported:
-        raise NotImplementedError(
-            "not ported to gnnep_tpu_torch yet (see ROADMAP.md): "
-            + "; ".join(unported))
+    """Raise ValueError where options conflict: a member trained over a
+    mesh (`--data-shards` × `--edge-shards` > 1) cannot also run
+    member-parallel, as in the JAX package. Every option runs: none is
+    refused as unported."""
+    n_slots = max(int(cfg.data_shards), 1) * max(int(cfg.edge_shards), 1)
+    if n_slots > 1 and cfg.member_parallel in ("vmap", "shard"):
+        raise ValueError(
+            "--data-shards/--edge-shards train each member over a device "
+            "mesh and cannot combine with --member-parallel "
+            f"'{cfg.member_parallel}' (members would contend for the same "
+            "devices). Use sequential members with a mesh, or member "
+            "parallelism with single-device members.")
 
 
 @dataclasses.dataclass
@@ -84,6 +86,7 @@ class TrainingSetup:
     folds: List[List[int]]
     bin_edges: np.ndarray
     bin_weights: np.ndarray
+    giant: Optional[GiantSet] = None   # graphs beyond the budget
 
 
 def prepare(cfg: TrainConfig, store: Optional[GraphStore] = None
@@ -107,12 +110,33 @@ def prepare(cfg: TrainConfig, store: Optional[GraphStore] = None
     transformer = LogTransformer.fit(train_targets)
     bin_edges, bin_weights, _, _ = compute_bin_statistics(
         train_targets, cfg.freq_bins, cfg.freq_gamma, eps=cfg.relative_eps)
-    budget = BatchBudget.plan(std_store, range(std_store.n_graphs),
-                              cfg.batch_size, slack=cfg.batch_slack,
-                              quantile=cfg.batch_quantile, cover_all=True)
+    giant = None
+    if cfg.giant_graphs == "boundary":
+        # the fixpoint classification shared with evaluate and predict,
+        # then the cover-all guarantee over the normal population
+        _, g_idx, budget = classify_giants(
+            std_store, range(std_store.n_graphs),
+            lambda pop, ca: BatchBudget.plan(
+                std_store, pop, cfg.batch_size, slack=cfg.batch_slack,
+                quantile=cfg.batch_quantile, cover_all=ca))
+        if g_idx:
+            giant = build_giant_set(std_store, g_idx,
+                                    n_shards=max(int(cfg.edge_shards), 1))
+            if cfg.verbose:
+                p = giant.plan
+                print(f"[Giant] {len(g_idx)} graph(s) exceed the batch "
+                      f"budget; routed via boundary partition over "
+                      f"{giant.n_shards} edge shard(s) (plan: rn={p.rn} "
+                      f"e_loc={p.e_loc} l_loc={p.l_loc} bn={p.bn} "
+                      f"bl={p.bl})")
+    else:
+        budget = BatchBudget.plan(std_store, range(std_store.n_graphs),
+                                  cfg.batch_size, slack=cfg.batch_slack,
+                                  quantile=cfg.batch_quantile,
+                                  cover_all=True)
     return TrainingSetup(std_store, scaler, transformer, budget, train_idx,
                          val_idx, calib_idx, test_idx, folds, bin_edges,
-                         bin_weights)
+                         bin_weights, giant)
 
 
 def model_config(cfg: TrainConfig, store: GraphStore, *,
@@ -141,17 +165,22 @@ def model_config(cfg: TrainConfig, store: GraphStore, *,
 
 
 def collect_ensemble(members: Sequence[Alignn], batches, floor: float,
-                     device: torch.device):
-    """Member forwards on one device → ([M,N,T] means, [M,N,T] vars, [N,T]
-    targets)."""
-    forward = make_forward(floor)
+                     device: torch.device, giant: Optional[GiantSet] = None,
+                     giant_ids: Sequence[int] = (),
+                     pool: Optional[WorldPool] = None):
+    """Member forwards → ([M,N,T] means, [M,N,T] vars, [N,T] targets), the
+    packed batches fanned out over the visible cards, then the boundary
+    forward's rows of `giant_ids` (`parallel.giant.MemberRows`; the same
+    order for every member)."""
     means, variances, targets = [], [], None
-    for model in members:
-        mean_z, sigma_z, targets, _ = collect_predictions(
-            forward, model.to(device), batches)
-        means.append(mean_z)
-        variances.append(sigma_z ** 2)
-    forward.close()
+    with MemberRows(floor, device=device,
+                    gset=giant if len(giant_ids) else None,
+                    pool=pool) as rows:
+        for model in members:
+            mean_z, sigma_z, targets, _ = rows(model.to(device), batches,
+                                               giant_ids)
+            means.append(mean_z)
+            variances.append(sigma_z ** 2)
     return np.stack(means), np.stack(variances), targets
 
 
@@ -237,7 +266,10 @@ def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
                  device=None) -> Dict:
     """Full training pipeline; returns the summary dict (test stats, and the
     optimizer steps each member took in this run: 0 for a member skipped on
-    resume). `device` None means CUDA, which must then be available."""
+    resume). `device` None means CUDA, which must then be available. A
+    member's mesh (`--data-shards` × `--edge-shards`) or `shard` mode's
+    slots take one card each there. The rank processes of the run's meshes
+    start once and serve every member and the calibration."""
     dev = resolve_device(device)
     check_supported(cfg)
     use_proc = cfg.member_isolation == "process"
@@ -260,15 +292,40 @@ def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
         print(f"Batch budget: {setup.budget}")
         print(f"Device: {dev}")
 
-    num_folds = len(setup.folds)
-    members: List[Alignn] = []
-    steps: List[int] = []
     freq_weights = compute_freq_weights(cfg, setup)
     if freq_weights is not None and cfg.verbose:
         tw = freq_weights[np.asarray(setup.train_idx, dtype=np.int64)]
         print(f"[Weights] freq-gamma={cfg.freq_gamma}: bin weights over "
               f"{len(setup.train_idx)} train samples | "
               f"mean={tw.mean():.3f} min={tw.min():.3f} max={tw.max():.3f}")
+    with WorldPool() as pool:
+        if cfg.member_parallel in ("vmap", "shard"):
+            members, steps = train_members_vmapped(
+                setup, cfg, mode=cfg.member_parallel,
+                freq_weights=freq_weights, device=dev, pool=pool)
+            if cfg.member_parallel == "vmap":   # shard's ranks wrote theirs
+                for i, model in enumerate(members):
+                    save_member(save_dir / f"model_{i}.npz", model)
+        else:
+            members, steps = _train_sequential(
+                cfg, setup, freq_weights, dev, save_dir, use_proc,
+                member_mesh(cfg, dev), pool)
+        summary = _calibrate_and_report(cfg, setup, members, steps, dev,
+                                        save_dir, t_start, pool)
+    (save_dir / "train_summary.json").write_text(
+        json.dumps(summary, indent=2, default=float))
+    return summary
+
+
+def _train_sequential(cfg: TrainConfig, setup: TrainingSetup, freq_weights,
+                      dev: torch.device, save_dir: Path, use_proc: bool,
+                      mesh, pool: WorldPool):
+    """The members one after another (each over `mesh` where it is set, or
+    in its own process) → (members on the CPU, optimizer steps each)."""
+    s = setup.store
+    num_folds = len(setup.folds)
+    members: List[Alignn] = []
+    steps: List[int] = []
     cfg_path = write_member_cfg(cfg, save_dir) if use_proc else None
     for i in range(cfg.ensemble_size):
         member_path = save_dir / f"model_{i}.npz"
@@ -297,13 +354,25 @@ def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
             steps.append(run_member_process(cfg_path, i, dev))
             model = load_member(member_path, "cpu")
         else:
-            model, _, n_steps = train_member(
-                s, member_cfg, mc, setup.transformer, setup.budget, seed_i,
-                train_i, holdout, freq_weights=freq_weights, device=dev)
+            args = (s, member_cfg, mc, setup.transformer, setup.budget,
+                    seed_i, train_i, holdout, freq_weights)
+            model, _, n_steps = (
+                train_member(*args, device=dev, giant=setup.giant)
+                if mesh is None else
+                train_member_on_mesh(mesh, pool, *args, giant=setup.giant))
             save_member(member_path, model)
             steps.append(n_steps)
         members.append(model)
+    return members, steps
 
+
+def _calibrate_and_report(cfg: TrainConfig, setup: TrainingSetup, members,
+                          steps, dev: torch.device, save_dir: Path,
+                          t_start: float, pool: WorldPool) -> Dict:
+    """Scaler state, conformal calibration, embeddings and the test report
+    → the run's summary; `pool`'s worlds serve the giants' boundary
+    forward."""
+    s = setup.store
     dims = {"node_dim": s.node_dim, "edge_dim": s.edge_dim,
             "angle_dim": s.angle_dim, "global_scalar_dim": s.global_scalar_dim,
             "sg_dim": N_SG_ONE_HOT, "target_dim": s.target_dim,
@@ -317,10 +386,13 @@ def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
     if not setup.calib_idx:
         raise ValueError("Calibration split is empty; set calib_frac > 0 and "
                          "rerun.")
-    calib_batches = epoch_batches(s, setup.calib_idx, setup.budget,
-                                  shuffle=False)
+    calib_norm, calib_giant = (setup.giant.split(setup.calib_idx)
+                               if setup.giant else (setup.calib_idx, []))
+    calib_batches = (epoch_batches(s, calib_norm, setup.budget,
+                                   shuffle=False) if calib_norm else [])
     m_means, m_vars, calib_y = collect_ensemble(
-        members, calib_batches, cfg.min_logvar_floor, dev)
+        members, calib_batches, cfg.min_logvar_floor, dev,
+        giant=setup.giant, giant_ids=calib_giant, pool=pool)
     mean_z, var_z = ensemble_mixture(m_means, m_vars)
     std_z = np.sqrt(var_z)
     target_z = setup.transformer.transform(calib_y)
@@ -341,10 +413,13 @@ def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
                      "device": str(dev),
                      "train_time_s": time.time() - t_start}
     if setup.test_idx:
-        test_batches = epoch_batches(s, setup.test_idx, setup.budget,
-                                     shuffle=False)
-        tm, tv, test_y = collect_ensemble(members, test_batches,
-                                          cfg.min_logvar_floor, dev)
+        test_norm, test_giant = (setup.giant.split(setup.test_idx)
+                                 if setup.giant else (setup.test_idx, []))
+        test_batches = (epoch_batches(s, test_norm, setup.budget,
+                                      shuffle=False) if test_norm else [])
+        tm, tv, test_y = collect_ensemble(
+            members, test_batches, cfg.min_logvar_floor, dev,
+            giant=setup.giant, giant_ids=test_giant, pool=pool)
         mean_zt, var_zt = ensemble_mixture(tm, tv)
         mean_zt = mean_zt * a + b
         std_zt = np.sqrt(var_zt)
@@ -371,9 +446,6 @@ def run_training(cfg: TrainConfig, store: Optional[GraphStore] = None,
                   f"(target={1.0 - cfg.conformal_alpha:.4f})")
     elif cfg.verbose:
         print("No test split; skipping final evaluation.")
-
-    (save_dir / "train_summary.json").write_text(
-        json.dumps(summary, indent=2, default=float))
     return summary
 
 
@@ -385,6 +457,8 @@ def _save_embeddings(save_dir: Path, members: Sequence[Alignn],
     splits = {"train": setup.train_idx, "val": setup.val_idx,
               "calib": setup.calib_idx, "test": setup.test_idx}
     for name, idx in splits.items():
+        if setup.giant is not None:   # giants: no packed embed pass
+            idx = setup.giant.split(idx)[0]
         if not idx:
             continue
         accum = []

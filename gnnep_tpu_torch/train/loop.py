@@ -146,12 +146,12 @@ def _compute_forward(model: Alignn, batch: DeviceBatch, dtype: torch.dtype,
         {"train": train, "generator": generator})
 
 
-def hetero_nll(model: Alignn, hyper: TrainHyper, batch: DeviceBatch,
-               y_z: torch.Tensor, generator: Optional[torch.Generator],
-               train: bool):
-    """Loss + (mean, logvar, per-sample loss) of one batch; `y_z` are the
-    log-standardized targets [G, T]. With `train` and a generator, feature
-    jitter and dropout are drawn from it."""
+def train_outputs(model: Alignn, hyper: TrainHyper, batch: DeviceBatch,
+                  generator: Optional[torch.Generator], train: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, logvar) of one batch as f32, the logvar not yet floored. With
+    `train` and a generator, feature jitter and dropout are drawn from
+    it."""
     if train and hyper.feature_jitter_std > 0.0 and generator is not None:
         std = hyper.feature_jitter_std
         batch = dataclasses.replace(
@@ -164,8 +164,17 @@ def hetero_nll(model: Alignn, hyper: TrainHyper, batch: DeviceBatch,
                 device=batch.globals_.device))
     mean, logvar = _compute_forward(model, batch, _DTYPES[hyper.compute_dtype],
                                     train=train, generator=generator)
-    mean = mean.float()
-    logvar = torch.clamp_min(logvar.float(), hyper.min_logvar_floor)
+    return mean.float(), logvar.float()
+
+
+def hetero_nll(model: Alignn, hyper: TrainHyper, batch: DeviceBatch,
+               y_z: torch.Tensor, generator: Optional[torch.Generator],
+               train: bool):
+    """Loss + (mean, logvar, per-sample loss) of one batch; `y_z` are the
+    log-standardized targets [G, T]. With `train` and a generator, feature
+    jitter and dropout are drawn from it."""
+    mean, logvar = train_outputs(model, hyper, batch, generator, train)
+    logvar = torch.clamp_min(logvar, hyper.min_logvar_floor)
     nll = 0.5 * (logvar + (mean - y_z) ** 2 / torch.exp(logvar))
     nll = nll * batch.weight[:, None]
     sample_loss = masked_sample_nll(nll, batch.y_mask, batch.graph_mask)
@@ -176,6 +185,40 @@ def hetero_nll(model: Alignn, hyper: TrainHyper, batch: DeviceBatch,
         loss = loss + hyper.log_sigma_l2 * log_sigma_sq.sum() / (
             n_real * y_z.shape[1])
     return loss, (mean, logvar, sample_loss)
+
+
+def nll_loss_sums(mean: torch.Tensor, logvar: torch.Tensor, batch,
+                  y_z: torch.Tensor, hyper: TrainHyper):
+    """The sum-form loss of the multi-device steps (the JAX package's
+    `nll_loss_sums`): floor clamp, per-sample weights, y_mask-valid target
+    averaging and the log-σ L2, summed over real graphs, not averaged →
+    (loss_sum, per-sample loss). The caller divides the summed gradients
+    by the global real-graph count."""
+    logvar = torch.clamp_min(logvar, hyper.min_logvar_floor)
+    nll = 0.5 * (logvar + (mean - y_z) ** 2 / torch.exp(logvar)) \
+        * batch.weight[:, None]
+    sample_loss = masked_sample_nll(nll, batch.y_mask, batch.graph_mask)
+    loss_sum = sample_loss.sum()
+    if hyper.log_sigma_l2 > 0.0:
+        ls2 = ((0.5 * logvar) ** 2 * batch.graph_mask[:, None]).sum() \
+            / y_z.shape[1]
+        loss_sum = loss_sum + hyper.log_sigma_l2 * ls2
+    return loss_sum, sample_loss
+
+
+@torch.no_grad()
+def step_metrics(mean: torch.Tensor, logvar: torch.Tensor,
+                 sample_loss: torch.Tensor, batch, mu: torch.Tensor,
+                 sd: torch.Tensor) -> torch.Tensor:
+    """A step's `StepMetrics` stacked, f32 [7]: the error diagnostics over
+    y_mask-valid (graph, target) cells of the linear-space prediction."""
+    pred = torch.exp(mean * sd + mu)
+    el_mask = batch.graph_mask[:, None] * batch.y_mask
+    err = (pred - batch.y) * el_mask
+    return torch.stack([
+        sample_loss.sum(), batch.graph_mask.sum(), err.abs().sum(),
+        (err ** 2).sum(), el_mask.sum(), (logvar * el_mask).sum(),
+        (torch.exp(logvar) * batch.graph_mask[:, None]).max()])
 
 
 @dataclasses.dataclass
@@ -313,14 +356,8 @@ class TrainStep:
         loss.backward()
         apply_update(self.params, [p.grad for p in self.params], self.state,
                      self.is_sigma, self.lr_mean, self.lr_sigma, self.hyper)
-        with torch.no_grad():
-            pred = torch.exp(mean * self.sd + self.mu)
-            el_mask = batch.graph_mask[:, None] * batch.y_mask
-            err = (pred - batch.y) * el_mask
-            return torch.stack([
-                sample_loss.sum(), batch.graph_mask.sum(), err.abs().sum(),
-                (err ** 2).sum(), el_mask.sum(), (logvar * el_mask).sum(),
-                (torch.exp(logvar) * batch.graph_mask[:, None]).max()])
+        return step_metrics(mean, logvar, sample_loss, batch, self.mu,
+                            self.sd)
 
     def _one(self, batch, generator: Optional[torch.Generator]
              ) -> torch.Tensor:
@@ -520,7 +557,14 @@ def collect_predictions(forward, model: Alignn, batches: Sequence
     arrays (mean_z [N,T], sigma_z [N,T], y_linear [N,T], sample_index
     [N]). Every batch is queued before the outputs are read back, once."""
     outs = [torch.stack(forward(model, b)) for b in batches]
-    host = torch.cat(outs, dim=1).cpu().numpy()      # [2, ΣG, T]
+    return prediction_rows(batches, torch.cat(outs, dim=1).cpu().numpy())
+
+
+def prediction_rows(batches: Sequence, host: np.ndarray
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                               np.ndarray]:
+    """[2, ΣG, T] (mean, logvar) of `batches`, concatenated in order →
+    `collect_predictions`' per-real-graph rows."""
     means, sigmas, ys, idxs = [], [], [], []
     start = 0
     for b in batches:

@@ -1,6 +1,8 @@
-"""Single ensemble-member training on one device: epoch loop, best-state
-selection with the reference's tie-break cascade, early stopping, optional
-KNN density weighting (the counterpart of `gnnep_tpu.train.member`).
+"""Ensemble-member training: epoch loop, best-state selection with the
+reference's tie-break cascade, early stopping, optional KNN density
+weighting (the counterpart of `gnnep_tpu.train.member`), on one device or
+over a (data × edge) mesh of rank processes, with giant graphs through the
+boundary-exchange partition.
 
 Selection semantics track the reference trainer
 (`scripts/train.py:1712-1804`): candidates are epochs whose val MAE is
@@ -24,6 +26,7 @@ at its first eligible epoch), and the file goes when the member finishes.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from pathlib import Path
@@ -37,13 +40,20 @@ from ..data.batching import BatchBudget, epoch_batches
 from ..data.store import GraphStore
 from ..data.transforms import LogTransformer
 from ..models.alignn import Alignn, AlignnConfig, init_alignn, leaf_names
+from ..parallel.boundary_shard import RankBoundaryBatch
+from ..parallel.giant import giant_outputs, giant_rows
+from ..parallel.mesh import (Mesh, Rank, WorldPool, broadcast_object,
+                             gather_objects, make_mesh, slot_devices,
+                             visible_cards)
+from ..parallel.train_step import (BoundaryTrainStep,
+                                   make_aligned_train_step, stack_for_mesh)
 from ..utils.profiling import ThroughputMeter, maybe_trace
 from .artifacts import (count_pytree_leaves, load_pytree, load_pytree_meta,
                         save_pytree)
 from .config import TrainConfig
 from .knn_weights import compute_knn_weights
-from .loop import (TrainHyper, collect_predictions, cosine_lr, make_forward,
-                   make_train_step)
+from .loop import (TrainHyper, cast_model, collect_predictions, cosine_lr,
+                   make_forward, make_train_step)
 from .metrics import eval_metrics
 
 _GRACE_EPOCHS = 5  # reference warmup_epochs for early stopping (train.py:1561)
@@ -222,20 +232,26 @@ def resume_path(cfg: TrainConfig, member_seed: int) -> Path:
     return Path(cfg.save_dir) / f"resume_member_{member_seed}.npz"
 
 
-def _layout(device: torch.device) -> str:
-    return f"{RESUME_LAYOUT}:{device.type}"
+def _layout(device: torch.device, n_generators: int = 1) -> str:
+    """The archive's layout key: the device type, and the number of
+    generator states where a mesh member saves more than one (each slot's
+    stream, and the edge axis' shared one)."""
+    key = f"{RESUME_LAYOUT}:{device.type}"
+    return key if n_generators == 1 else f"{key}:generators{n_generators}"
 
 
-def _resume_leaves(step, names: List[str], best_state, generator) -> list:
-    """The archive's leaves (`RESUME_LAYOUT`) of the step's current state."""
+def _resume_leaves(step, names: List[str], best_state,
+                   generator_states: list) -> list:
+    """The archive's leaves (`RESUME_LAYOUT`) of the step's current state,
+    then the generator states."""
     st = step.read_state()
     best = best_state if best_state is not None else st["params"]
     return ([st["params"][n] for n in names] + [best[n] for n in names]
             + [st["mu"][n] for n in names] + [st["nu"][n] for n in names]
-            + [st["count"]["count"], generator.get_state()])
+            + [st["count"]["count"], *generator_states])
 
 
-def _check_layout(path: Path, member_seed: int, device: torch.device,
+def _check_layout(path: Path, member_seed: int, layout: str,
                   n_leaves: int) -> None:
     """Raise before any fallback where the archive was written by another
     layout (a JAX package archive has no port layout key) or holds another
@@ -243,13 +259,88 @@ def _check_layout(path: Path, member_seed: int, device: torch.device,
     progress."""
     meta = load_pytree_meta(path)
     got, count = meta.get("layout"), count_pytree_leaves(path)
-    if got != _layout(device) or count != n_leaves:
+    if got != layout or count != n_leaves:
         raise RuntimeError(
             f"[Member {member_seed}] resume checkpoint {path} holds layout "
             f"{got!r} with {count} leaves, but this run writes "
-            f"{_layout(device)!r} with {n_leaves}; the states are "
+            f"{layout!r} with {n_leaves}; the states are "
             "incompatible. Delete the resume file to deliberately restart "
             "the member.")
+
+
+def member_mesh(cfg: TrainConfig, device) -> Optional[Mesh]:
+    """The (data × edge) mesh a member trains over, None for one slot.
+    On the card each slot takes its own card (the JAX package's
+    `ValueError` where fewer are visible)."""
+    n_data = max(int(cfg.data_shards), 1)
+    n_edge = max(int(cfg.edge_shards), 1)
+    n_slots = n_data * n_edge
+    if n_slots == 1:
+        return None
+    cards = visible_cards(device)
+    if cards is not None and cards < n_slots:
+        raise ValueError(
+            f"--data-shards {n_data} × --edge-shards {n_edge} = "
+            f"{n_slots} device slots, but only {cards} devices are "
+            "visible. Reduce the shard counts or run on more cards "
+            "(on the CPU, --device cpu runs any number of slots).")
+    return make_mesh(n_data, n_edge, devices=slot_devices(n_slots, device))
+
+
+def _check_giants(cfg: TrainConfig, giant, n_edge: int,
+                  indices: List[int]) -> None:
+    """The JAX package's refusals of a member with giants among `indices`:
+    `--flat-opt`, and a GiantSet planned for another edge axis."""
+    if giant is None or not giant.split(indices)[1]:
+        return
+    if cfg.flat_opt:
+        raise ValueError(
+            "giant_graphs='boundary' does not compose with --flat-opt: "
+            "the boundary step runs the per-leaf optimizer tail and its "
+            "state layout must match the packed-batch step's.")
+    if n_edge != giant.n_shards:
+        raise ValueError(
+            f"GiantSet was planned for {giant.n_shards} edge shards but "
+            f"the training mesh has edge axis {n_edge}; re-run prepare "
+            "with matching --edge-shards.")
+
+
+def _member_rank(rank: Rank, *args):
+    """`train_member` on one slot of its mesh; rank 0 returns (best state
+    as host arrays, best val metrics, optimizer steps)."""
+    model, metrics, n_steps = train_member(*args, rank=rank)
+    if rank.rank != 0:
+        return None
+    return ({k: v.numpy() for k, v in model.state_dict().items()}, metrics,
+            n_steps)
+
+
+def train_member_on_mesh(mesh: Mesh, pool: Optional[WorldPool],
+                         store: GraphStore, cfg: TrainConfig,
+                         model_cfg: AlignnConfig,
+                         transformer: LogTransformer, budget: BatchBudget,
+                         member_seed: int, train_indices: List[int],
+                         val_indices: List[int], freq_weights=None,
+                         giant=None) -> Tuple[Alignn, Dict[str, float], int]:
+    """`train_member` over `mesh` (`member_mesh`): one rank process a slot
+    in `pool`'s world for the mesh (a pool of its own where None), every
+    optimizer step taking D·E packed sub-batches through the graph-aligned
+    step (`parallel.train_step`) → rank 0's (best model on the CPU, best
+    val metrics, optimizer steps)."""
+    args = (store, cfg, model_cfg, transformer, budget, member_seed,
+            list(train_indices), list(val_indices or []), freq_weights)
+    _check_giants(cfg, giant, mesh.n_edge, args[6] + args[7])
+    own = pool is None
+    pool = pool or WorldPool()
+    try:
+        state, metrics, n_steps = pool.get(mesh).run(_member_rank, *args,
+                                                     None, giant)
+    finally:
+        if own:
+            pool.close()
+    best = Alignn(model_cfg)
+    best.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return best, metrics, n_steps
 
 
 def train_member(
@@ -263,6 +354,8 @@ def train_member(
     val_indices: List[int],
     freq_weights: Optional[np.ndarray] = None,
     device=None,
+    giant=None,
+    rank: Optional[Rank] = None,
 ) -> Tuple[Alignn, Dict[str, float], int]:
     """Train one member on `device` (None: CUDA, which must then be
     available) → (best model on the CPU, best val metrics, optimizer steps
@@ -270,7 +363,20 @@ def train_member(
 
     `freq_weights`: optional [n_graphs] per-sample inverse-frequency loss
     weights (active when --freq-gamma > 0; `train.bins.freq_sample_weights`).
-    Composed multiplicatively with KNN density weights when both are on."""
+    Composed multiplicatively with KNN density weights when both are on.
+
+    `rank`: this process's slot of the member's mesh
+    (`train_member_on_mesh` starts one a slot); rank 0 validates, selects,
+    saves and broadcasts the stop decision and the KNN weights, so every
+    rank leaves the epoch loop together. `giant` (`parallel.giant.GiantSet`):
+    train and val graphs in it step through the boundary-exchange partition
+    over the mesh's edge axis, D at a time, sharing the member's
+    parameters and Adam state; they step after the packed batches each
+    epoch, in the epoch's shuffled order."""
+    _check_giants(cfg, giant, rank.mesh.n_edge if rank else 1,
+                  list(train_indices) + list(val_indices or []))
+    distributed = rank is not None and rank.mesh.size > 1
+    lead = rank is None or rank.rank == 0
     hyper = TrainHyper(weight_decay=cfg.weight_decay,
                        log_sigma_l2=cfg.log_sigma_l2,
                        feature_jitter_std=cfg.feature_jitter_std,
@@ -279,13 +385,42 @@ def train_member(
                        compute_dtype=cfg.compute_dtype)
     scan_k = max(int(cfg.scan_steps), 0)
     model = init_alignn(np.random.default_rng(member_seed), model_cfg)
-    step = make_train_step(model, hyper, transformer.means, transformer.stds,
-                           device)
+    if distributed:
+        step = make_aligned_train_step(rank, model, hyper, transformer.means,
+                                       transformer.stds)
+    else:
+        step = make_train_step(model, hyper, transformer.means,
+                               transformer.stds,
+                               rank.device if rank else device)
     device = step.params[0].device
+    # each slot its own dropout and jitter stream: the member's seed offset
+    # by the slot index
     generator = torch.Generator(device=device)
-    generator.manual_seed(member_seed)
+    generator.manual_seed(member_seed + (rank.rank if rank else 0))
+    generators = [generator]
     forward = make_forward(cfg.min_logvar_floor)
 
+    # the giant-graph boundary path over the mesh's edge axis (one slot
+    # without a mesh): its step shares the member's parameters and state
+    g_step = g_rank = shared_gen = None
+    if giant is not None:
+        g_train_all = giant.split(train_indices)[1]
+        val_norm, g_val = giant.split(list(val_indices or []))
+    else:
+        g_train_all, g_val = [], []
+        val_norm = list(val_indices or [])
+    if g_train_all or g_val:
+        g_rank = rank or Rank(make_mesh(1, 1, devices=[str(device)]), 0)
+        g_step = BoundaryTrainStep(step, g_rank, giant.plan)
+        if g_rank.mesh.n_edge > 1:
+            # the replicated tail's stream, one per data slot
+            shared_gen = torch.Generator(device=device)
+            shared_gen.manual_seed(member_seed + g_rank.mesh.size
+                                   + g_rank.data)
+            generators.append(shared_gen)
+
+    if not lead:
+        cfg = dataclasses.replace(cfg, verbose=False)
     effective = bootstrap_indices(train_indices, cfg, member_seed)
     base_lr = cfg.lr
     sigma_base = cfg.sigma_lr_max if cfg.sigma_lr_max > 0 else base_lr
@@ -294,9 +429,8 @@ def train_member(
                             cfg.lr_min)
 
     names = leaf_names(model_cfg)
-    val_idx = list(val_indices or [])
-    val_batches = (epoch_batches(store, val_idx, budget, shuffle=False)
-                   if val_idx else [])
+    val_batches = (epoch_batches(store, val_norm, budget, shuffle=False)
+                   if val_norm and lead else [])
     selector = BestSelector(cfg)
     best_state: Optional[Dict[str, torch.Tensor]] = None
     patience = max(cfg.early_stop, 0)
@@ -315,12 +449,22 @@ def train_member(
         return {n: p.detach().to("cpu", copy=True)
                 for n, p in model.named_parameters()}
 
+    def generator_states() -> list:
+        """Every slot's generator states, in rank order."""
+        mine = [g.get_state() for g in generators]
+        if not distributed:
+            return mine
+        return [st for per_rank in gather_objects(rank, mine)
+                for st in per_rank]
+
     # mid-training resume (a framework extension: the reference restarts a
     # crashed member from scratch)
     rpath = resume_path(cfg, member_seed)
+    n_gens = len(generators) * (rank.mesh.size if distributed else 1)
+    layout = _layout(device, n_gens)
     if cfg.resume and rpath.exists():
-        template = _resume_leaves(step, names, None, generator)
-        _check_layout(rpath, member_seed, device, len(template))
+        template = _resume_leaves(step, names, None, generator_states())
+        _check_layout(rpath, member_seed, layout, len(template))
         try:
             leaves, meta = load_pytree(rpath, template)
             n = len(names)
@@ -329,10 +473,15 @@ def train_member(
             resumed_at, resumed_stale = int(meta["epoch"]) + 1, \
                 int(meta["stale"])
             best_maes = meta["best_mae_global"], meta["best_mae_reference"]
-            # written into the step's own tensors and the generator in
+            # written into the step's own tensors and the generators in
             # place: a capture made later reads them where they are
             step.load_state(parts[0], parts[2], parts[3], int(leaves[4 * n]))
-            generator.set_state(torch.from_numpy(leaves[4 * n + 1]))
+            mine = leaves[4 * n + 1:]
+            if distributed:
+                k = len(generators)
+                mine = mine[rank.rank * k:(rank.rank + 1) * k]
+            for g, st in zip(generators, mine):
+                g.set_state(torch.from_numpy(st))
             start_epoch, stale = resumed_at, resumed_stale
             selector.best_mae_global, selector.best_mae_reference = best_maes
             selector.best = meta.get("best") or None
@@ -348,15 +497,22 @@ def train_member(
             print(f"[Member {member_seed}] resume failed ({exc}); starting "
                   "fresh")
     meter = ThroughputMeter()
+    n_slots = rank.mesh.size if distributed else 1
 
     with ThreadPoolExecutor(max_workers=1) as pipeline:
         def submit_pack():
+            """(pack future, the epoch's giant ids): the permutation is
+            drawn here, and the giants ride the same draw."""
             order = np.asarray(effective, dtype=np.int64)
             order = order[shuffle_rng.permutation(order.size)]
+            giant_order: List[int] = []
+            if giant is not None:
+                order, giant_order = giant.split(order.tolist())
             return pipeline.submit(epoch_batches, store, order, budget,
-                                   shuffle=False, workers=pack_workers)
+                                   shuffle=False,
+                                   workers=pack_workers), giant_order
 
-        next_batches = submit_pack()
+        next_batches, next_giants = submit_pack()
         for epoch in range(start_epoch, cfg.epochs + 1):
             step.set_lr(mean_sched(epoch - 1), sigma_sched(epoch - 1))
             use_weights = (cfg.enable_density_weighting
@@ -372,81 +528,133 @@ def train_member(
                     for gi, w in weights_by_index.items():
                         weight_arr[gi] *= w
             batches = _graft_weights(next_batches.result(), weight_arr)
+            giant_epoch = list(next_giants)
             if epoch < cfg.epochs:
-                next_batches = submit_pack()
+                next_batches, next_giants = submit_pack()
             for b in batches:
                 meter.count_batch(b)
+            # an optimizer step's operand: one batch, or on the mesh this
+            # slot's sub-batch of the next D·E (the epoch's last group
+            # padded with inert batches)
+            units = batches if n_slots == 1 else [
+                stack_for_mesh(batches[i:i + n_slots], n_slots)[rank.rank]
+                for i in range(0, len(batches), n_slots)]
             sums = np.zeros(6)   # loss, graphs, abs, sq, logvar, n_el
-            # full K-batch chunks read their metrics back once; the
+            # full K-unit chunks read their metrics back once; the
             # remainder step by step. No padded steps either way.
-            n_scan = (len(batches) // scan_k) * scan_k if scan_k > 1 else 0
-            with maybe_trace(cfg.profile_dir if epoch == start_epoch
+            n_scan = (len(units) // scan_k) * scan_k if scan_k > 1 else 0
+            with maybe_trace(cfg.profile_dir if epoch == start_epoch and lead
                              else None):
-                for i in range(0, n_scan, scan_k):
-                    sums += _metric_sums(step.run(batches[i:i + scan_k],
+                for i in range(0, n_scan, max(scan_k, 1)):
+                    sums += _metric_sums(step.run(units[i:i + scan_k],
                                                   generator))
-                for b in batches[n_scan:]:
+                for b in units[n_scan:]:
                     sums += _metric_sums(step(b, generator))
-            n_steps += len(batches)
+                n_steps += len(units)
+                # giants: one boundary step per D of them (bootstrap
+                # duplicates step again)
+                if giant_epoch and g_step is not None:
+                    nd = g_rank.mesh.n_data
+                    for group, tabs in zip(
+                            giant.groups(giant_epoch, nd, weight_arr),
+                            giant.group_tables(giant_epoch, nd)):
+                        rb = RankBoundaryBatch.from_boundary(
+                            group[g_rank.data], tabs[g_rank.data],
+                            g_rank.edge, device)
+                        sums += _metric_sums(g_step(rb, generator,
+                                                    shared_gen))
+                        n_steps += 1
+                        for bb in group:
+                            meter.edges += float(np.asarray(bb.a_mask).sum()
+                                                 + np.asarray(bb.l_mask).sum())
+                            meter.graphs += float(
+                                np.asarray(bb.graph_mask).sum())
             train_loss = sums[0] / max(sums[1], 1.0)
             train_mae = sums[2] / max(sums[1], 1.0)
             train_rmse = math.sqrt(sums[3] / max(sums[5], 1.0))
             train_logvar = sums[4] / max(sums[5], 1.0)
 
-            if val_batches:
-                mean_z, sigma_z, y_val, _ = collect_predictions(
-                    forward, model, val_batches)
-                vm = eval_metrics(mean_z, sigma_z, y_val, transformer)
-            else:
-                vm = {"nll": train_loss, "mae": train_mae,
-                      "rmse": train_rmse, "mae_log": float("nan"),
-                      "coverage": float("nan"), "ece": float("nan"),
-                      "spearman": float("nan"),
-                      "logvar_mean": train_logvar, "sigma_max": float("nan")}
-
-            if selector.consider(epoch, vm):
-                best_state = snapshot()
-
-            if cfg.verbose:
-                print(f"[Member {member_seed}] Epoch {epoch:03d} | "
-                      f"train_loss={_fmt(train_loss)} "
-                      f"train_mae={_fmt(train_mae)} "
-                      f"train_rmse={_fmt(train_rmse)} "
-                      f"train_logvar={_fmt(train_logvar)} | "
-                      f"val_loss={_fmt(vm['nll'])} val_mae={_fmt(vm['mae'])} "
-                      f"val_rmse={_fmt(vm['rmse'])} "
-                      f"val_cov={_fmt(vm['coverage'])} "
-                      f"val_ece={_fmt(vm['ece'])} "
-                      f"val_spear={_fmt(vm['spearman'])}", flush=True)
-
-            if epoch > _GRACE_EPOCHS:
-                if selector.significant_improve:
-                    stale = 0
+            # the giants' val forward needs every rank; the rest is rank 0's
+            g_rows = None
+            if g_val:
+                mean, logvar = giant_outputs(g_rank, cast_model(
+                    model, cfg.compute_dtype), giant, g_val,
+                    cfg.min_logvar_floor, cfg.compute_dtype)
+                g_rows = giant_rows(giant, g_val, g_rank.mesh.n_data, mean,
+                                    logvar)[:3]
+            stop = False
+            if lead:
+                parts = []
+                if val_batches:
+                    parts.append(collect_predictions(
+                        forward, model, val_batches)[:3])
+                if g_rows is not None:
+                    parts.append(g_rows)
+                if parts:
+                    mean_z, sigma_z, y_val = (
+                        np.concatenate([p[i] for p in parts])
+                        for i in range(3))
+                    vm = eval_metrics(mean_z, sigma_z, y_val, transformer)
                 else:
-                    stale += 1
-                    if stale >= patience:
-                        if cfg.verbose:
-                            print(f"Early stopping at epoch {epoch:03d} "
-                                  "(mae plateau)")
-                        next_batches.cancel()
-                        break
-            else:
-                stale = 0
+                    vm = {"nll": train_loss, "mae": train_mae,
+                          "rmse": train_rmse, "mae_log": float("nan"),
+                          "coverage": float("nan"), "ece": float("nan"),
+                          "spearman": float("nan"),
+                          "logvar_mean": train_logvar,
+                          "sigma_max": float("nan")}
+
+                if selector.consider(epoch, vm):
+                    best_state = snapshot()
+
+                if cfg.verbose:
+                    print(f"[Member {member_seed}] Epoch {epoch:03d} | "
+                          f"train_loss={_fmt(train_loss)} "
+                          f"train_mae={_fmt(train_mae)} "
+                          f"train_rmse={_fmt(train_rmse)} "
+                          f"train_logvar={_fmt(train_logvar)} | "
+                          f"val_loss={_fmt(vm['nll'])} "
+                          f"val_mae={_fmt(vm['mae'])} "
+                          f"val_rmse={_fmt(vm['rmse'])} "
+                          f"val_cov={_fmt(vm['coverage'])} "
+                          f"val_ece={_fmt(vm['ece'])} "
+                          f"val_spear={_fmt(vm['spearman'])}", flush=True)
+
+                if epoch > _GRACE_EPOCHS:
+                    if selector.significant_improve:
+                        stale = 0
+                    else:
+                        stale += 1
+                        if stale >= patience:
+                            if cfg.verbose:
+                                print(f"Early stopping at epoch {epoch:03d} "
+                                      "(mae plateau)")
+                            stop = True
+                else:
+                    stale = 0
+            if distributed:
+                stop = broadcast_object(rank, stop)
+            if stop:
+                next_batches.cancel()
+                break
 
             if cfg.checkpoint_every > 0 and epoch % cfg.checkpoint_every == 0:
-                save_pytree(rpath, _resume_leaves(step, names, best_state,
-                                                  generator),
-                            meta={"epoch": epoch, "stale": stale,
-                                  "best_mae_global": selector.best_mae_global,
-                                  "best_mae_reference":
-                                      selector.best_mae_reference,
-                                  "best": selector.best,
-                                  "best_epoch": selector.best_epoch,
-                                  "has_best": best_state is not None,
-                                  "flat_opt": bool(cfg.flat_opt),
-                                  "layout": _layout(device)})
+                states = generator_states()
+                if lead:
+                    save_pytree(rpath, _resume_leaves(step, names, best_state,
+                                                      states),
+                                meta={"epoch": epoch, "stale": stale,
+                                      "best_mae_global":
+                                          selector.best_mae_global,
+                                      "best_mae_reference":
+                                          selector.best_mae_reference,
+                                      "best": selector.best,
+                                      "best_epoch": selector.best_epoch,
+                                      "has_best": best_state is not None,
+                                      "flat_opt": bool(cfg.flat_opt),
+                                      "layout": layout})
 
-            # KNN weight refresh after warmup (activated next epoch)
+            # KNN weight refresh after warmup (activated next epoch); the
+            # giants stay out of the snapshot (their weights stay 1.0)
             if (cfg.enable_density_weighting
                     and epoch >= cfg.weight_warmup_epochs
                     and (weights_by_index is None
@@ -454,8 +662,14 @@ def train_member(
                              and (last_snapshot_epoch is None
                                   or epoch - last_snapshot_epoch
                                   >= cfg.knn_refresh)))):
-                weights_by_index = _knn_snapshot(model, store, cfg, budget,
-                                                 effective, epoch)
+                if lead:
+                    weights_by_index = _knn_snapshot(
+                        model, store, cfg, budget,
+                        [g for g in effective
+                         if giant is None or g not in giant], epoch)
+                if distributed:
+                    weights_by_index = broadcast_object(rank,
+                                                        weights_by_index)
                 if weights_by_index is None:
                     last_snapshot_epoch = weights_active_epoch = None
                 else:
@@ -470,7 +684,7 @@ def train_member(
     best = Alignn(model_cfg)
     best.load_state_dict(best_state if best_state is not None
                          else snapshot())
-    if rpath.exists():  # member finished: resume state no longer needed
+    if lead and rpath.exists():  # member finished: resume state not needed
         try:
             rpath.unlink()
         except OSError:

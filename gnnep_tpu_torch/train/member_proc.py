@@ -28,7 +28,7 @@ def main(cfg_path: str, index: str, device: str = "cuda") -> int:
     from .artifacts import save_member
     from .config import TrainConfig
     from .ensemble import compute_freq_weights, member_plan, prepare
-    from .member import train_member
+    from .member import member_mesh, train_member, train_member_on_mesh
 
     cfg = TrainConfig(**json.loads(Path(cfg_path).read_text()))
     i = int(index)
@@ -40,9 +40,13 @@ def main(cfg_path: str, index: str, device: str = "cuda") -> int:
         print(f"[member_proc {i}] seed={seed_i} fold={fold_idx + 1}/"
               f"{len(setup.folds)} train={len(train_i)} "
               f"fold_val={len(holdout)} device={device}", flush=True)
-    model, _, n_steps = train_member(
-        setup.store, member_cfg, mc, setup.transformer, setup.budget, seed_i,
-        train_i, holdout, freq_weights=freq_weights, device=device)
+    args = (setup.store, member_cfg, mc, setup.transformer, setup.budget,
+            seed_i, train_i, holdout, freq_weights)
+    mesh = member_mesh(cfg, device)
+    model, _, n_steps = (
+        train_member(*args, device=device, giant=setup.giant)
+        if mesh is None else
+        train_member_on_mesh(mesh, None, *args, giant=setup.giant))
     save_member(Path(cfg.save_dir) / f"model_{i}.npz", model)
     if cfg.verbose:
         from ..ops.cuda.graphs import launch_counts

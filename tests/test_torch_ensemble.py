@@ -172,15 +172,17 @@ def test_port_trained_ensemble_serves_in_both_packages(trained):
         np.testing.assert_array_equal(a[k], b[k])
 
 
-UNPORTED = {
-    "member_parallel": "vmap", "data_shards": 2, "edge_shards": 2,
-    "giant_graphs": "boundary",
-}
+# no option is left unported (a mesh and member parallelism conflict, as
+# in the JAX package: tests/test_torch_member_parallel.py)
+UNPORTED = {}
 # options that raised until they were ported (KNN weighting, embeddings,
-# member processes, resume and checkpoints, the profiler trace)
+# member processes, resume and checkpoints, the profiler trace, the
+# multi-device paths)
 PORTED = {"enable_density_weighting": True, "save_embeddings": True,
           "member_isolation": "process", "resume": True,
-          "checkpoint_every": 2, "profile_dir": "trace"}
+          "checkpoint_every": 2, "profile_dir": "trace",
+          "member_parallel": "vmap", "data_shards": 2, "edge_shards": 2,
+          "giant_graphs": "boundary"}
 
 
 @pytest.mark.parametrize("field", sorted({**UNPORTED, **PORTED}))

@@ -381,8 +381,19 @@ def test_plots_without_matplotlib_raise(ensemble_dir, tmp_path,
         pcli.main(_cli_argv(ensemble_dir, tmp_path))
 
 
-def test_giant_shards_raise(ensemble_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_giant_shards_raise(ensemble_dir, tmp_path, monkeypatch):
+    """`--giant-shards N` runs (this store has no giant, so the metrics are
+    the cover-all budget's; tests/test_torch_giant.py routes real giants),
+    and raises the JAX package's ValueError where fewer cards are visible
+    than shards."""
+    routed = pcli.main(_cli_argv(ensemble_dir, tmp_path / "r", "--no-plots",
+                                 "--giant-shards", "2"))
+    cover = pcli.main(_cli_argv(ensemble_dir, tmp_path / "c", "--no-plots"))
+    for key in ("mae", "rmse"):
+        np.testing.assert_allclose(routed["overall"][key],
+                                   cover["overall"][key], rtol=1e-5)
+    monkeypatch.setattr(pr, "visible_cards", lambda device: 1)
+    with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
         pcli.main(_cli_argv(ensemble_dir, tmp_path, "--giant-shards", "2"))
 
 

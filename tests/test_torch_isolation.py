@@ -61,7 +61,11 @@ def test_importing_the_port_loads_no_jax():
             "gnnep_tpu_torch.utils.profiling",
             "gnnep_tpu_torch.infer.bundle", "gnnep_tpu_torch.cli.bundle",
             "gnnep_tpu_torch.train.convert", "gnnep_tpu_torch.cli.convert",
-            "gnnep_tpu_torch.cli.parity"} <= set(mods)
+            "gnnep_tpu_torch.cli.parity", "gnnep_tpu_torch.parallel.mesh",
+            "gnnep_tpu_torch.parallel.train_step",
+            "gnnep_tpu_torch.parallel.ensemble_vmap",
+            "gnnep_tpu_torch.parallel.boundary_shard",
+            "gnnep_tpu_torch.parallel.giant"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -187,8 +187,16 @@ def test_cli_modes_on_cpu(ensemble_dir, tmp_path):
     custom.write_text(json.dumps({"materials": [{"structure": {}}]}))
     with pytest.raises(KeyError, match="lattice"):
         pcli.main(base + runs["custom"])
-    with pytest.raises(NotImplementedError, match="giant"):
-        pcli.main(base + runs["random"] + ["--giant-shards", "2"])
+    # --giant-shards routes graphs beyond the request's typical budget
+    # through the boundary exchange (tests/test_torch_giant.py); this
+    # store has none, so the predictions are the cover-all budget's
+    out = tmp_path / "giant.json"
+    pcli.main(base + runs["materials"] + ["--giant-shards", "2",
+                                          "--output-json", str(out)])
+    _assert_results_close(
+        json.loads(out.read_text())["predictions"],
+        json.loads((tmp_path / "materials.json").read_text())["predictions"],
+        rtol=1e-6)
 
 
 def test_member_written_by_port_loads_in_jax(ensemble_dir, tmp_path):
