@@ -148,10 +148,22 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      steps beside the replayed packed steps), `cli.predict` /
      `cli.evaluate --giant-shards 1` (the giants' rows last); then each
      giant at S = 2 over the pair, f32 and bf16, against its unpartitioned
-     forward and step on the card, the bytes each rank sent equal to
-     `BoundaryPlan.comm_bytes_per_conv` × 3 × layers (MgO's 8 atoms fit
-     one window: nothing sent); the boundary step's walls at S = 2 and 1
-     and its device time at S = 1.
+     forward and step on the card (in bf16 against the S = 1 boundary
+     path, which rounds the same weights and pools in f32 as S = 2 does,
+     within a tenth of its distance from f32), the bytes each rank sent
+     equal to `BoundaryPlan.comm_bytes_per_conv` × 3 × layers (MgO's 8
+     atoms fit one window: nothing sent); the boundary step's walls at
+     S = 2 and 1 and its device time at S = 1. edge_shard: the
+     edge-sharded formulation on one 64-graph batch, f32, at S = 1 in
+     this process (COO and windowed) and S = 2 over the pair (windowed,
+     row windows measured), each forward and step against the card's
+     captured forward and step, the trainer's dropout windowed against
+     COO from the same seeds, kernel 7 exactly once a conv a forward
+     and twice a conv a step (four times with the trainer's dropout),
+     parameters bitwise equal on both ranks, the bytes handed to the
+     collectives equal to the formulation's count, walls, device time at
+     S = 1; and a conv whose row window's last row is real, windowed
+     against COO.
   6. check: one eager train step on the card against the CPU plain step
      from the same parameters and batch, dropout and jitter off, on each
      rung (span included), and on the default rung at hidden 512 / 4 heads
@@ -4530,25 +4542,41 @@ def expect_replays(what: str, replays: dict, train: int) -> None:
                              "train steps and some eval forwards")
 
 
-def near_limit(got, ref, f32, floor: float):
-    """(‖got − f32‖, its limit) of `near_as_ref`."""
+# a bf16 result of one layout against the same of another that rounds the
+# same weights and sums the same way (`direct`): within this share of the
+# reference's distance from the f32 result. On the 2,040-atom giant the
+# S = 2 boundary path lies from the S = 1 one at about a hundredth of the
+# S = 1 path's distance from f32 (bf16's rounding of the weights and
+# states, which both layouts share, is most of it), and each fault
+# `dev/limit_probe.py` plants at a third of it or more (PERF.md §6)
+BF16_LAYOUT_SHARE = 0.1
+
+
+def near_limit(got, ref, f32, floor: float, direct: bool = False):
+    """(‖got − f32‖, its limit) of `near_as_ref`; `direct`: (‖got − ref‖,
+    BF16_LAYOUT_SHARE of ‖ref − f32‖ + 1e-6), `floor` unused."""
     got, ref, f32 = (np.asarray(x, np.float64).ravel() for x in
                      (got, ref, f32))
-    err = float(np.linalg.norm(got - f32)) if np.isfinite(got).all() \
-        else float("inf")
-    return err, NOISE_FACTOR * float(np.linalg.norm(ref - f32)) \
-        + floor * float(np.linalg.norm(f32)) + 1e-6
+    err = float(np.linalg.norm(got - (ref if direct else f32))) \
+        if np.isfinite(got).all() else float("inf")
+    noise = float(np.linalg.norm(ref - f32))
+    if direct:
+        return err, BF16_LAYOUT_SHARE * noise + 1e-6
+    return err, NOISE_FACTOR * noise + floor * float(np.linalg.norm(f32)) \
+        + 1e-6
 
 
-def near_as_ref(what: str, got, ref, f32, floor: float) -> float:
+def near_as_ref(what: str, got, ref, f32, floor: float,
+                direct: bool = False) -> float:
     """A bf16 result of one layout against the same of another, where bf16
     rounds in each layout's own order: `got` may lie from the f32 result
     `f32` at most NOISE_FACTOR times as far as `ref` lies from it (L2 over
     every element: two layouts' rounding errors are alike in size, not in
     value, and a per-leaf maximum over 70 leaves read 3.8× on one leaf in
     a card run), plus `floor` of f32's norm (+1e-6) → the share of that
-    limit."""
-    err, lim = near_limit(got, ref, f32, floor)
+    limit. `direct` (layouts that round alike): `got` within
+    BF16_LAYOUT_SHARE of that distance from `ref` itself."""
+    err, lim = near_limit(got, ref, f32, floor, direct)
     if err > lim:
         raise AssertionError(f"{what}: {err:.3e} from the f32 result, limit "
                              f"{lim:.3e}")
@@ -4561,7 +4589,7 @@ COUNTS = ("n_graphs", "n_elements")
 
 
 def layout_limits(dtype: str, metrics, ref_metrics, grads, ref_grads,
-                  f32=None) -> list:
+                  f32=None, direct: bool = False) -> list:
     """[(what, err, limit)] of `compare_layouts`' comparisons; err is inf
     where the result is not finite."""
     tol = STEP_TOL[dtype]
@@ -4587,7 +4615,8 @@ def layout_limits(dtype: str, metrics, ref_metrics, grads, ref_grads,
         rows.append(("all leaves", *near_limit(
             np.concatenate([grads[n].ravel() for n in names]),
             np.concatenate([ref_grads[n].ravel() for n in names]),
-            np.concatenate([f32[1][n].ravel() for n in names]), 1e-3)))
+            np.concatenate([f32[1][n].ravel() for n in names]), 1e-3,
+            direct)))
     for name, g in (grads.items() if f32 is None else ()):
         r = ref_grads[name]
         rows.append((name, float(np.abs(g - r).max())
@@ -4597,7 +4626,7 @@ def layout_limits(dtype: str, metrics, ref_metrics, grads, ref_grads,
 
 
 def compare_layouts(what: str, dtype: str, metrics, ref_metrics, grads,
-                    ref_grads, f32=None) -> dict:
+                    ref_grads, f32=None, direct: bool = False) -> dict:
     """A step of one layout against the reference layout's step from the
     same state. f32: StepMetrics at rtol STEP_TOL / atol METRIC_ATOL, each
     gradient leaf within STEP_TOL of its largest magnitude (+1e-5). bf16
@@ -4606,10 +4635,11 @@ def compare_layouts(what: str, dtype: str, metrics, ref_metrics, grads,
     together in L2, as near the f32 step as the reference layout's bf16
     step (`near_as_ref`), plus for a metric STEP_TOL of its f32 value and
     1e-2 a (graph, target) cell, for the gradients 1e-3 of the norm
-    (`layout_limits`). → the worst shares of those limits."""
+    (`layout_limits`); `direct`: the gradients as `near_as_ref`'s. → the
+    worst shares of those limits."""
     worst_m, worst_g, leaf = 0.0, 0.0, ""
     for name, err, lim in layout_limits(dtype, metrics, ref_metrics, grads,
-                                        ref_grads, f32):
+                                        ref_grads, f32, direct):
         if err > lim:
             raise AssertionError(f"{what} {dtype} {name}: differs by "
                                  f"{err:.3e}, limit {lim:.3e}")
@@ -4924,6 +4954,30 @@ def _rank_boundary_wall(rank, state, cfg, hyper, means, stds, plan, bb, tb,
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def boundary_s1(setup, g: int, cfg, state, hyper, lrs, dev):
+    """Graph `g` on the boundary path at S = 1 in this process, from
+    `state` in `hyper`'s compute type: (its eval forward [2, G, T], one
+    step's StepMetrics, `boundary_grads`' gradients by name)."""
+    from gnnep_tpu_torch.parallel.boundary_shard import RankBoundaryBatch
+    from gnnep_tpu_torch.parallel.giant import build_giant_set
+    from gnnep_tpu_torch.parallel.mesh import Rank, make_mesh
+    from gnnep_tpu_torch.parallel.train_step import (boundary_grads,
+                                                     boundary_steps_rank)
+    from gnnep_tpu_torch.train.loop import MIN_LOGVAR_FLOOR
+    t = setup.transformer
+    one = Rank(make_mesh(1, 1, devices=[str(dev)]), 0)
+    gset = build_giant_set(setup.store, [g], 1)
+    plan, bb, tb = gset.plan, gset.bbs[g], gset.tables[g]
+    res = boundary_steps_rank(one, state, cfg, hyper, t.means, t.stds, plan,
+                              [[bb]], [[tb]], lrs, MIN_LOGVAR_FLOOR)
+    _, grads = boundary_grads(
+        one, _card_model(cfg, state, dev),
+        RankBoundaryBatch.from_boundary(bb, tb, 0, dev), plan, hyper,
+        t.means, t.stds)
+    return (np.stack(res["forward"]), [float(x) for x in res["metrics"][0]],
+            {n: v.detach().float().cpu().numpy() for n, v in grads.items()})
+
+
 def phase_giant(pair, root: Path, data: Path, dev, layers: int):
     """A giant beside the fixture's graphs: `GIANT_ID` holds more
     line-graph edges (252,048) than a 64-graph batch's arena (74,880).
@@ -4933,12 +4987,15 @@ def phase_giant(pair, root: Path, data: Path, dev, layers: int):
     packed steps, kernels 6 and 7 2·layers times a step of either kind;
     `cli.predict` and `cli.evaluate --no-plots --giant-shards 1` route it
     (its row finite; kernel 5 2·layers a forward). Then the S = 2 boundary
-    forward and step over the gloo pair, f32 and bf16, against the card's
-    unpartitioned forward (SERVE_RTOL / SERVE_ATOL in f32; in bf16
-    `near_as_ref` with a floor of 1e-2: as near the f32 forward as the
-    unpartitioned bf16 one) and
-    step (`compare_layouts`), each rank's kernels 5 (eval and
-    train forward), 6 and 7 2·layers times, the bytes each rank sent
+    forward and step over the gloo pair, f32 and bf16: in f32 against the
+    card's unpartitioned forward (SERVE_RTOL / SERVE_ATOL) and step
+    (`compare_layouts`); in bf16 against the S = 1 boundary path in bf16
+    (`boundary_s1`: its forward, step metrics and `boundary_grads`, which
+    round the same weights and pool in f32 as S = 2 does): the forward and
+    the gradients within BF16_LAYOUT_SHARE of its distance from the
+    unpartitioned f32 step (`near_as_ref(direct=True)`), the metrics as
+    near that step as it (`compare_layouts`), each rank's kernels 5 (eval
+    and train forward), 6 and 7 2·layers times, the bytes each rank sent
     through the exchange against `BoundaryPlan.comm_bytes_per_conv`; the
     boundary step's wall at S = 2 and S = 1 beside the unpartitioned
     step's, and the S = 1 step's device time."""
@@ -5096,11 +5153,24 @@ def phase_giant(pair, root: Path, data: Path, dev, layers: int):
                     raise AssertionError(
                         f"boundary {mid} {dtype} rank {r}: sent "
                         f"{res_r['sent_bytes']} bytes, plan {wire}")
-            model = _card_model(cfg, state, dev)
-            db = DeviceBatch.from_batch(single, dev)
-            fwd = np.stack([o.cpu().numpy() for o in Forward(
-                MIN_LOGVAR_FLOOR, dtype).eager(cast_model(model, dtype),
-                                                db)])
+            if f32_ref is None:
+                # the unpartitioned graph's forward and step
+                model = _card_model(cfg, state, dev)
+                db = DeviceBatch.from_batch(single, dev)
+                fwd = np.stack([o.cpu().numpy() for o in Forward(
+                    MIN_LOGVAR_FLOOR, dtype).eager(cast_model(model, dtype),
+                                                    db)])
+                ref = TrainStep(model, hyper, t.means, t.stds)
+                ref_m = [float(x) for x in ref(single, None, *lrs[0])]
+                ref_grads = {nm: p.grad.detach().float().cpu().numpy()
+                             for nm, p in zip(ref.names, ref.params)}
+            else:
+                # bf16: the S = 1 boundary path, which pools in f32 as S = 2
+                # does (the unpartitioned bf16 step pools in bf16 and lies
+                # far from f32 on the 2,040-atom giant: PERF.md) and rounds
+                # the same weights and states as S = 2
+                fwd, ref_m, ref_grads = boundary_s1(setup, g, cfg, state,
+                                                    hyper, lrs, dev)
             got = np.stack(ranks[0]["forward"])
             if f32_ref is None:
                 if not np.allclose(got, fwd, rtol=SERVE_RTOL,
@@ -5111,15 +5181,12 @@ def phase_giant(pair, root: Path, data: Path, dev, layers: int):
                     SERVE_ATOL + SERVE_RTOL * np.abs(fwd).max()))
             else:
                 fwd_share = near_as_ref(f"boundary {mid} {dtype} forward",
-                                          got, fwd, f32_ref[0], 1e-2)
-            ref = TrainStep(model, hyper, t.means, t.stds)
-            ref_m = [float(x) for x in ref(single, None, *lrs[0])]
-            ref_grads = {nm: p.grad.detach().float().cpu().numpy()
-                         for nm, p in zip(ref.names, ref.params)}
+                                        got, fwd, f32_ref[0], 0.0,
+                                        direct=True)
             worst = compare_layouts(f"boundary {mid}", dtype,
                                     ranks[0]["metrics"][0], ref_m,
                                     ranks[0]["grads"], ref_grads,
-                                    f32_ref and f32_ref[1:])
+                                    f32_ref and f32_ref[1:], direct=True)
             f32_ref = f32_ref or (fwd, ref_m, ref_grads)
             s2 = pair.run(_rank_boundary_wall, state, cfg, hyper, t.means,
                           t.stds, plan, bb, tb, GIANT_TIMED)
@@ -5171,6 +5238,405 @@ def phase_giant(pair, root: Path, data: Path, dev, layers: int):
         s1_boundary_step_device_ms=f"{dev_ms:.3f}",
         unpartitioned_eager_step_wall_ms=f"{eager_ms:.2f}",
         unpartitioned_captured_step_wall_ms=f"{cap_ms:.2f}")
+    return out
+
+
+# ---------------------------------------------------- the edge-sharded path
+# The bond and line-graph arenas of one batch cut over the edge axis, the
+# states replicated, each conv's partials summed over the ranks
+# (`parallel/edge_shard.py`): at S = 1 in this process, at S = 2 on the
+# gloo pair of [mesh]. Kernel 7 runs once a conv in an eval forward; a step
+# runs it once forward and once backward a conv (the q gather), twice each
+# with attention dropout (the denominator and α·v forward; the q and the
+# denominator gathers backward).
+EDGE_STEPS = 2       # steps of each checked run but S = 1's first
+EDGE_TIMED = 3       # timed forwards and steps after the checked ones
+EDGE_DROPOUT = 0.15  # the trainer's default
+
+
+def edge_k7(layers: int, train: bool, dropout: bool) -> int:
+    """Kernel 7's launches in a windowed eval forward or train step."""
+    per_conv = (2 if dropout else 1) * (2 if train else 1)
+    return 2 * layers * per_conv
+
+
+def edge_bytes(batch, cfg, n_edge: int, n_params: int, train: bool,
+               dropout: bool) -> int:
+    """Bytes a rank hands to the collectives, D = 1, f32: per conv a
+    [rows, heads] max and the sums (Σ exp·v ‖ Σ exp, [rows, H + heads];
+    with dropout Σ exp and Σ α·v apart), each sum once more in the
+    backward; the bond-state gather ([E/S, H], its backward a [E, H] sum)
+    and the two live-edge counts; a step's gradient all-reduce (the
+    parameters and 6 metric sums, then max_var)."""
+    if n_edge == 1:
+        return 0
+    h, heads = cfg.hidden, cfg.heads
+    n_bonds = batch.edge_src.shape[0]
+    conv = 0
+    for n in (n_bonds, batch.nodes.shape[0]):
+        sums = [n * heads, n * h] if dropout else [n * (h + heads)]
+        conv += n * heads + sum(sums) * (2 if train else 1)
+    total = cfg.layers * conv + n_bonds // n_edge * h + 2
+    if train:
+        total += n_bonds * h + n_params + 6 + 1
+    return 4 * total
+
+
+def _rank_edge(rank, state, cfg, hyper, means, stds, group, layout,
+               steps, seed, timed, profile=False, restart=False):
+    """On this rank from `state`: the edge-sharded eval forward of its
+    edge slice of its data slot's batch, then `steps` sharded steps
+    (dropout and jitter from this rank's and the slot's shared generator,
+    seeded from `seed`; none where None; each step's metrics and reduced
+    gradients kept; with `restart` each step after the first starts again
+    from `state` with a fresh Adam state, the streams running on), each
+    part's kernel launches and collective bytes counted alone; then `timed` more forwards and steps,
+    host ms each (the parameters move on); with `profile` (in this
+    process) a profiled forward and step (`profile_run`; the profiler's
+    kernel 7 calls equal its launches where it runs) → dict."""
+    import torch
+    from gnnep_tpu_torch.models.alignn import DeviceBatch
+    from gnnep_tpu_torch.parallel import mesh
+    from gnnep_tpu_torch.parallel.train_step import (edge_slice,
+                                                     make_sharded_forward,
+                                                     make_sharded_train_step)
+    from gnnep_tpu_torch.train.loop import MIN_LOGVAR_FLOOR
+    model = _card_model(cfg, state, rank.device)
+    db = DeviceBatch.from_batch(edge_slice(group[rank.data], rank.edge,
+                                           rank.mesh.n_edge), rank.device)
+    fwd = make_sharded_forward(rank, MIN_LOGVAR_FLOOR, **layout)
+    step = make_sharded_train_step(rank, model, hyper, means, stds,
+                                   **layout)
+    gens = (None, None)
+    if seed is not None:
+        gens = tuple(torch.Generator(device=rank.device) for _ in range(2))
+        gens[0].manual_seed(seed + rank.rank)
+        gens[1].manual_seed(seed + rank.mesh.size + rank.data)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        mesh.reduced_bytes = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, read_counts(), mesh.reduced_bytes
+
+    forward, f_counts, f_bytes = counted(
+        lambda: np.stack([x.cpu().numpy() for x in fwd(model, db)]))
+    grads = []
+    zeros = {n: np.zeros_like(v) for n, v in state.items()}
+
+    def stepped():
+        rows = []
+        for k in range(steps):
+            if restart and k:
+                step.base.load_state(state, zeros, zeros, 0)
+            rows.append([float(v) for v in step(db, *gens, MESH_LR,
+                                                MESH_LR)])
+            grads.append({n: g.detach().cpu().numpy()
+                          for n, g in zip(step.base.names,
+                                          step.last_grads)})
+        return rows
+
+    metrics, s_counts, s_bytes = counted(stepped)
+    out = dict(forward=forward, metrics=metrics, params=_state(model),
+               grads=grads, counts={"forward": f_counts, "steps": s_counts},
+               bytes={"forward": f_bytes, "steps": s_bytes})
+
+    def run_fwd():
+        fwd(model, db)
+
+    def run_step():
+        step(db, *gens, MESH_LR, MESH_LR)
+
+    for name, fn in (("forward", run_fwd), ("step", run_step)):
+        if timed:
+            out[f"{name}_wall_ms"], _ = chunk_ms(synced(fn), reps=timed)
+        if profile:
+            kernel_runs = bool(layout)
+            out[f"{name}_busy_share"], out[f"{name}_device_ms"] = \
+                profile_run(synced(fn), f"edge_shard_{name}_"
+                            f"{'windowed' if kernel_runs else 'coo'}",
+                            "float32", 1, counted=kernel_runs)
+    return out
+
+
+def _rank_window_last_row(rank, hidden: int, heads: int):
+    """The conv at `hidden` / `heads` on a hand-built arena of 512 rows
+    that take 4 edges each, over this rank's slice (S = 2): each slice
+    ends on its window's last row (hi = r_lo + R − 1, R = 256), real.
+    Windowed (kernel 7) and COO on this rank's card, forward and the
+    gradients of Σ out·g → (largest elementwise |Δ| over the limit
+    rtol 3e-4 / atol 3e-5 of the outputs; the largest |Δ| of each
+    gradient over STEP_TOL of its largest value plus 1e-5 of the largest
+    of all, the worst of them and its name; kernel 7's launches). The key
+    bias's true gradient is zero (softmax cancels q·b_key): its own is
+    rounding noise, held by the absolute term."""
+    import torch
+    from gnnep_tpu_torch.ops.graph_attention import TransformerConvParams
+    from gnnep_tpu_torch.parallel.edge_shard import edge_sharded_conv
+    from gnnep_tpu_torch.parallel.train_step import measure_row_windows
+    rng = np.random.default_rng(SEED + 82)
+    n, deg, s = 512, 4, rank.mesh.n_edge
+    e_loc = n * deg // s
+    row_ptr = np.arange(n + 1, dtype=np.int32) * deg
+
+    class Arena:
+        edge_row_ptr = lg_row_ptr = row_ptr
+        edge_src = lg_src = np.zeros(n * deg)
+        nodes = np.zeros(n)
+
+    window = measure_row_windows([Arena], s)[0]
+    lo = rank.edge * e_loc // deg
+    if window != 256 or (lo + window - 1) * deg + deg != (rank.edge + 1) * e_loc:
+        raise AssertionError(f"window {window}: the slice does not end on "
+                             "its last row")
+    dev = rank.device
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            dtype=torch.float32, device=dev)
+
+    sl = slice(rank.edge * e_loc, (rank.edge + 1) * e_loc)
+    src = torch.tensor(rng.integers(0, n, n * deg), device=dev)[sl]
+    dst = torch.arange(n, device=dev).repeat_interleave(deg)[sl]
+    x, ea, g = t(n, hidden), t(n * deg, hidden)[sl], t(n, hidden)
+    shapes = [(hidden, hidden), (hidden,)] * 3 + [(hidden, hidden)] \
+        + [(hidden, hidden), (hidden,), (3 * hidden, 1)]
+    params = [t(*sh, scale=hidden ** -0.5) for sh in shapes]
+    res = {}
+    for impl in ("windowed", "coo"):
+        leaves = [p.clone().requires_grad_(True) for p in [x, ea, *params]]
+        reset_counts()
+        out = edge_sharded_conv(
+            TransformerConvParams(*leaves[2:]), leaves[0], src, dst,
+            leaves[1], heads=heads, rank=rank,
+            row_ptr=torch.from_numpy(row_ptr).to(dev), impl=impl,
+            row_window=window)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        res[impl] = (out.detach(), [p.grad for p in leaves],
+                     read_counts()["csr_segment_sum"])
+    (o_w, g_w, k7), (o_c, g_c, _) = res["windowed"], res["coo"]
+    out_share = float(((o_w - o_c).abs() / (3e-5 + 3e-4 * o_c.abs())).max())
+    scale = max(float(b.abs().max()) for b in g_c)
+    names = ["x", "edge_attr", *TransformerConvParams._fields]
+    grad_share, leaf = max(
+        (float((a - b).abs().max()) / (STEP_TOL["float32"]
+                                       * float(b.abs().max())
+                                       + 1e-5 * scale), name)
+        for a, b, name in zip(g_w, g_c, names))
+    return out_share, grad_share, leaf, k7
+
+
+def captured_step(cfg, state, hyper, t, batch, dev, steps: int):
+    """The card's captured step from `state` on `batch` (its eager warm-up
+    on the batch, then the state back in place and `steps` replays, the
+    capture's first included) → (each step's StepMetrics as floats, each
+    step's gradients by name)."""
+    from gnnep_tpu_torch.train.loop import make_train_step
+    card = make_train_step(_card_model(cfg, state, dev), hyper, t.means,
+                           t.stds, dev)
+    card(batch, None, MESH_LR, MESH_LR)
+    zeros = {n: np.zeros_like(v) for n, v in state.items()}
+    card.load_state(state, zeros, zeros, 0)
+    metrics, grads = [], []
+    for _ in range(steps):
+        metrics.append([float(x) for x in card(batch, None, MESH_LR,
+                                               MESH_LR)])
+        grads.append({n: p.grad.detach().cpu().numpy()
+                      for n, p in zip(card.names, card.params)})
+    card.close()
+    return metrics, grads
+
+
+def phase_edge_shard(pair, setup, batches, dev, layers: int):
+    """The edge-sharded formulation at the flagship on one 64-graph batch,
+    f32. S = 1 in this process, COO and windowed: the eval forward and one
+    step (dropout and jitter off) against the card's captured forward and
+    step from the same state (the forward at SERVE_RTOL / SERVE_ATOL, the
+    step at `compare_layouts`' f32 limits), windowed against COO; kernel 7
+    `edge_k7` times on the windowed path and nothing else on either; each
+    forward's and step's wall, device ms and busy share (profiled); then
+    EDGE_STEPS steps with the trainer's dropout and jitter, each from the
+    same state, windowed against COO from the same seeds (the same keep
+    masks: each step's metrics and gradients at the f32 limits). S = 2 on
+    the gloo pair, widths and row windows measured: the windowed forward
+    and EDGE_STEPS steps against the card's forward and captured steps
+    (the first step's gradients, every step's metrics), then the dropout
+    steps as at S = 1; kernel 7's launches on each rank exactly `edge_k7`'s,
+    parameters bitwise equal on both ranks, the bytes each rank hands to
+    the collectives exactly `edge_bytes`; walls. Then a conv whose
+    window's last row is real (`_rank_window_last_row`), windowed against
+    COO on the pair."""
+    from gnnep_tpu_torch.models.alignn import init_alignn
+    from gnnep_tpu_torch.parallel.mesh import Rank, make_mesh
+    from gnnep_tpu_torch.parallel.train_step import (measure_row_windows,
+                                                     measure_table_widths)
+    from gnnep_tpu_torch.train.loop import (MIN_LOGVAR_FLOOR, Forward,
+                                            TrainHyper)
+    t0 = time.perf_counter()
+    cfg, _ = check_config(setup, batches, "eproj")
+    t = setup.transformer
+    b = full_batches(batches)[0]
+    state = _state(init_alignn(np.random.default_rng(SEED + 80), cfg))
+    n_params = sum(v.size for v in state.values())
+    off = TrainHyper(feature_jitter_std=0.0)
+    fwd = Forward(MIN_LOGVAR_FLOOR)
+    model = _card_model(cfg, state, dev)
+    fwd(model, b)
+    ref_fwd = np.stack([x.cpu().numpy() for x in fwd(model, b)])
+    fwd.close()
+    ref_m, ref_grads = captured_step(cfg, state, off, t, b, dev, EDGE_STEPS)
+    cfg_d = dataclasses.replace(cfg, dropout=EDGE_DROPOUT)
+
+    def layout_for(impl, n_edge):
+        if impl == "coo":
+            return {}
+        return dict(impl=impl, table_widths=measure_table_widths([b]),
+                    row_windows=measure_row_windows([b], n_edge))
+
+    def expect(what, r, n_edge, windowed, steps, dropout):
+        """Kernel 7's launches and the collectives' bytes of `r`'s forward
+        and `steps` steps."""
+        for part, train, n in (("forward", False, 1), ("steps", True, steps)):
+            drops = dropout and train      # an eval forward drops nothing
+            want = n * edge_k7(layers, train, drops) if windowed else 0
+            expect_counts(f"{what} {part}", r["counts"][part],
+                          {"csr_segment_sum": want})
+            nb = n * edge_bytes(b, cfg, n_edge, n_params, train, drops)
+            if r["bytes"][part] != nb:
+                raise AssertionError(f"{what} {part}: {r['bytes'][part]} "
+                                     f"bytes through the collectives, the "
+                                     f"formulation's {nb}")
+
+    def steps_vs(what, r, m, grads, grad_steps):
+        """Each of `r`'s steps against `m` / `grads`' at the f32 limits,
+        the gradients of the first `grad_steps` → the worst shares over
+        the steps. (Along a trajectory Adam turns rounding noise in
+        gradients of about zero into whole steps, which move the next
+        gradients: ROADMAP.md, Hazards; a later step's loss and metric sums
+        are held.)"""
+        res = [compare_layouts(f"{what} step {k + 1}", "float32",
+                               r["metrics"][k], m[k],
+                               *((r["grads"][k], grads[k])
+                                 if k < grad_steps else ({}, {})))
+               for k in range(len(r["metrics"]))]
+        return dict(max(res, key=lambda d: float(d["grad_share_of_limit"])),
+                    metrics_share_of_limit=max(
+                        (d["metrics_share_of_limit"] for d in res),
+                        key=float))
+
+    def check(what, r, n_edge, windowed, steps):
+        expect(what, r, n_edge, windowed, steps, False)
+        got = r["forward"][:, 0]
+        if not np.allclose(got, ref_fwd, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+            raise AssertionError(f"{what} forward: {got} vs {ref_fwd}")
+        share = float(np.abs(got - ref_fwd).max() / (
+            SERVE_ATOL + SERVE_RTOL * np.abs(ref_fwd).max()))
+        return dict(forward_share_of_limit=f"{share:.3f}",
+                    **steps_vs(what, r, ref_m, ref_grads, 1))
+
+    def dropout_vs_coo(what, win, coo, n_edge):
+        """The windowed dropout run against the COO one from the same
+        seeds: launches, bytes, each step."""
+        expect(f"{what} windowed", win, n_edge, True, EDGE_STEPS, True)
+        expect(f"{what} coo", coo, n_edge, False, EDGE_STEPS, True)
+        if not np.isfinite(win["metrics"]).all():
+            raise AssertionError(f"{what}: metrics {win['metrics']}")
+        return steps_vs(f"{what} windowed vs coo", win, coo["metrics"],
+                        coo["grads"], EDGE_STEPS)
+
+    out = {}
+    one = Rank(make_mesh(1, 1, devices=[str(dev)]), 0)
+    s1, s1_drop = {}, {}
+    for impl in ("coo", "windowed"):
+        lay = layout_for(impl, 1)
+        s1[impl] = r = _rank_edge(one, state, cfg, off, t.means, t.stds,
+                                  [b], lay, 1, None, EDGE_TIMED,
+                                  profile=True)
+        worst = check(f"edge_shard S=1 {impl}", r, 1, impl == "windowed", 1)
+        out[f"s1_{impl}"] = dict(
+            counts=r["counts"], **worst,
+            **{k: r[k] for k in ("forward_wall_ms", "step_wall_ms",
+                                 "forward_device_ms", "step_device_ms",
+                                 "forward_busy_share", "step_busy_share")})
+        say("edge_shard", shards=1, impl=impl, dtype="float32",
+            kernel7_forward=r["counts"]["forward"]["csr_segment_sum"],
+            kernel7_step=r["counts"]["steps"]["csr_segment_sum"],
+            forward_wall_ms=f"{r['forward_wall_ms']:.2f}",
+            forward_device_ms=f"{r['forward_device_ms']:.3f}",
+            step_wall_ms=f"{r['step_wall_ms']:.2f}",
+            step_device_ms=f"{r['step_device_ms']:.3f}",
+            step_busy_share=f"{r['step_busy_share']:.3f}", **worst)
+        s1_drop[impl] = _rank_edge(one, state, cfg_d, TrainHyper(), t.means,
+                                   t.stds, [b], lay, EDGE_STEPS, SEED + 81,
+                                   0, False, True)
+    vs = steps_vs("edge_shard S=1 windowed vs coo", s1["windowed"],
+                  s1["coo"]["metrics"], s1["coo"]["grads"], 1)
+    if not np.allclose(s1["windowed"]["forward"], s1["coo"]["forward"],
+                       rtol=SERVE_RTOL, atol=SERVE_ATOL):
+        raise AssertionError("edge_shard S=1: windowed forward vs COO")
+    out["s1_windowed_vs_coo"] = vs
+    say("edge_shard", shards=1, what="windowed_vs_coo", **vs)
+    vs = dropout_vs_coo("edge_shard S=1 dropout", s1_drop["windowed"],
+                        s1_drop["coo"], 1)
+    out["s1_dropout_windowed_vs_coo"] = vs
+    say("edge_shard", shards=1, what="dropout_windowed_vs_coo",
+        steps=EDGE_STEPS, dropout=EDGE_DROPOUT, **vs)
+
+    lay2 = layout_for("windowed", 2)
+    pair.run(_rank_reset)
+    ranks = pair.run(_rank_edge, state, cfg, off, t.means, t.stds, [b],
+                     lay2, EDGE_STEPS, None, EDGE_TIMED, every_rank=True)
+    worst = [check(f"edge_shard S=2 rank {i}", r, 2, True, EDGE_STEPS)
+             for i, r in enumerate(ranks)]
+    drop = {impl: pair.run(_rank_edge, state, cfg_d, TrainHyper(), t.means,
+                           t.stds, [b], layout_for(impl, 2), EDGE_STEPS,
+                           SEED + 81, 0, False, True, every_rank=True)
+            for impl in ("windowed", "coo")}
+    for i, rs in enumerate((ranks, drop["windowed"], drop["coo"])):
+        for name, v in rs[0]["params"].items():
+            if not np.array_equal(v, rs[1]["params"][name]):
+                raise AssertionError(f"edge_shard S=2 run {i}: {name} "
+                                     "differs across the ranks")
+    drop_vs = [dropout_vs_coo(f"edge_shard S=2 dropout rank {i}", w, c, 2)
+               for i, (w, c) in enumerate(zip(drop["windowed"],
+                                              drop["coo"]))]
+    trap = pair.run(_rank_window_last_row, cfg.hidden, cfg.heads,
+                    every_rank=True)
+    for i, (o_share, g_share, leaf, k7) in enumerate(trap):
+        if o_share > 1.0 or g_share > 1.0 or k7 != 2:
+            raise AssertionError(f"edge_shard window's last row, rank {i}: "
+                                 f"output {o_share:.3f}, gradients "
+                                 f"{g_share:.3f} ({leaf}) of the limit; "
+                                 f"kernel 7 {k7} launches (2)")
+    r0, d0 = ranks[0], drop["windowed"][0]
+    out["s2"] = dict(
+        row_windows=lay2["row_windows"], table_widths=lay2["table_widths"],
+        counts=r0["counts"], bytes=r0["bytes"], **worst[0],
+        forward_wall_ms=r0["forward_wall_ms"],
+        step_wall_ms=r0["step_wall_ms"],
+        dropout_counts=d0["counts"], dropout_bytes=d0["bytes"],
+        dropout_windowed_vs_coo=drop_vs,
+        window_last_row=[dict(output_share=o, grad_share=g, leaf=f)
+                         for o, g, f, _ in trap])
+    out["seconds"] = time.perf_counter() - t0
+    say("edge_shard", shards=2, impl="windowed", dtype="float32",
+        row_windows=json.dumps(lay2["row_windows"]),
+        kernel7_forward=r0["counts"]["forward"]["csr_segment_sum"],
+        kernel7_steps=r0["counts"]["steps"]["csr_segment_sum"],
+        kernel7_dropout_steps=d0["counts"]["steps"]["csr_segment_sum"],
+        bytes_forward=r0["bytes"]["forward"],
+        bytes_steps=r0["bytes"]["steps"],
+        bytes_dropout_steps=d0["bytes"]["steps"],
+        params_bitwise_across_ranks=True,
+        forward_wall_ms=f"{r0['forward_wall_ms']:.2f}",
+        step_wall_ms=f"{r0['step_wall_ms']:.2f}",
+        dropout_vs_coo=json.dumps(drop_vs),
+        window_last_row_shares=json.dumps(
+            [[round(o, 4), round(g, 4), f] for o, g, f, _ in trap]),
+        phase_seconds=f"{out['seconds']:.2f}", **worst[0])
     return out
 
 
@@ -5226,6 +5692,8 @@ def main() -> int:
                                                train_batches, dev,
                                                cfg.layers)
             giant = phase_giant(pair, root, data, dev, cfg.layers)
+            edge = phase_edge_shard(pair, setup, train_batches, dev,
+                                    cfg.layers)
         say("parallel", phases_seconds=f"{time.perf_counter() - t0:.2f}")
         resumed = phase_resume(root, data, cfg.layers, setup, train_batches,
                                dev)
@@ -5313,6 +5781,12 @@ def main() -> int:
         rec["launches_giant"] = giant["train"]["counts"][name]
         rec["launches_boundary"] = giant[
             f"boundary_{SYNTH_GIANT}_float32"]["counts"][name]
+    # the edge-sharded path, rank 0 of the pair: the EDGE_STEPS f32 steps
+    # with the trainer's dropout, and the windowed eval forward
+    kernels[2]["launches_edge_shard"] = \
+        edge["s2"]["dropout_counts"]["steps"]["csr_segment_sum"]
+    kernels[2]["launches_edge_shard_forward"] = \
+        edge["s2"]["counts"]["forward"]["csr_segment_sum"]
     for rung, spec in RUNGS.items():
         fwd = record(spec["fwd"], rung_cases[spec["fwd"]],
                      rung_serve[rung]["float32"],
@@ -5365,7 +5839,11 @@ def main() -> int:
                      "giant": {k: ({kk: vv for kk, vv in v.items()
                                     if kk != "counts"}
                                    if isinstance(v, dict) else v)
-                               for k, v in giant.items()}},
+                               for k, v in giant.items()},
+                     "edge_shard": {k: ({kk: vv for kk, vv in v.items()
+                                         if "counts" not in kk}
+                                        if isinstance(v, dict) else v)
+                                    for k, v in edge.items()}},
         "span": {"edge_span64": span_cfg.edge_span64,
                  "lg_span64": span_cfg.lg_span64,
                  "serve_launches_attn_eproj_fwd": span_serve,

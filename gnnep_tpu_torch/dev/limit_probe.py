@@ -20,7 +20,13 @@ copy, and runs the copy instead; the checkout itself is not touched:
 - `no_pool_psum`: the boundary trunk pools each rank's rows alone (the
   pooling partials are not summed over the edge axis); the f32 forward
   check then fails first, so the f32 forward comparison is let through to
-  reach the bf16 readings.
+  reach the bf16 readings;
+- `bf16_pool`: the boundary trunk pools in the compute type (bf16) instead
+  of f32; f32 runs are unchanged.
+Where a bf16 comparison holds the result to the reference layout's bf16
+result itself (`direct`, `[giant]`), a second row, "(L2 rule)", reads the
+same result by the rule of the other bf16 comparisons (as near the f32
+result as the reference, NOISE_FACTOR times, plus a floor).
 Prints one line, `LIMITS {json}`: every comparison's (what, dtype, item,
 err, limit) and the phases' other failures, with TAG and the card's name
 and power limit.
@@ -52,6 +58,9 @@ FAULTS = {
                      "EDGE_AXIS)\n",
                      "    stacked = torch.cat([sums, counts[:, None]], "
                      "dim=-1)\n"),
+    "bf16_pool": ("gnnep_tpu_torch/parallel/boundary_shard.py",
+                  "    state = node_state.float()\n",
+                  "    state = node_state\n"),
 }
 
 
@@ -86,18 +95,32 @@ def main(tag: str, lenient: bool, giant_only: bool) -> None:
     rows, errors = [], []
 
     def compare(what, dtype, metrics, ref_metrics, grads, ref_grads,
-                f32=None):
+                f32=None, direct=False):
         for item, err, lim in cs.layout_limits(dtype, metrics, ref_metrics,
-                                               grads, ref_grads, f32):
+                                               grads, ref_grads, f32,
+                                               direct):
             rows.append(dict(what=what, dtype=dtype, item=item,
                              err=float(err), limit=float(lim)))
+        if direct and f32 is not None:
+            names = sorted(grads)
+            err, lim = cs.near_limit(*(
+                np.concatenate([d[n].ravel() for n in names])
+                for d in (grads, ref_grads, f32[1])), 1e-3)
+            rows.append(dict(what=what, dtype=dtype,
+                             item="all leaves (L2 rule)", err=float(err),
+                             limit=float(lim)))
         return dict(metrics_share_of_limit="-", grad_share_of_limit="-",
                     nearest_leaf="-")
 
-    def near(what, got, ref, f32, floor):
-        err, lim = cs.near_limit(got, ref, f32, floor)
+    def near(what, got, ref, f32, floor, direct=False):
+        err, lim = cs.near_limit(got, ref, f32, floor, direct)
         rows.append(dict(what=what, dtype="bfloat16", item="forward",
                          err=float(err), limit=float(lim)))
+        if direct:
+            e2, l2 = cs.near_limit(got, ref, f32, 1e-2)
+            rows.append(dict(what=what, dtype="bfloat16",
+                             item="forward (L2 rule)", err=float(e2),
+                             limit=float(l2)))
         return err / lim
 
     cs.compare_layouts, cs.near_as_ref = compare, near

@@ -15,6 +15,12 @@ unspecified by the JAX package's contract (whose `windowed_segment_sum` ends
 it at `e_total_end`) and is written here as zeros, without walking its rows
 (their cotangents are zero in both gathers' backward). A tensor on the CPU
 takes the plain version; a CUDA tensor launches the kernel or raises.
+
+A row window whose last row is real (the edge-sharded formulation's,
+`parallel.edge_shard`) passes its R row pointers and the end of its last
+segment, R + 1 bounds: the kernel then sums all R rows and the zeroed
+segment is the one after them, dropped (`csr_window_sum`, and `csr_gather`
+with `closed`). The kernel and its existing callers are unchanged.
 """
 from __future__ import annotations
 
@@ -70,9 +76,11 @@ def csr_segment_sum_plain(values: torch.Tensor, order: Optional[torch.Tensor],
                           ) -> torch.Tensor:
     """Plain PyTorch version → [N, W] in `out_dtype`: the rows of the
     permuted arena `values[order]` (`order` None: the identity) summed per
-    segment in f32, in row order, then cast; the last segment zeros."""
+    segment in f32 (float64 values in float64: the CPU's gradient checks),
+    in row order, then cast; the last segment zeros."""
     n = seg_starts.shape[0]
-    out = torch.zeros((n,) + tuple(values.shape[1:]), dtype=torch.float32,
+    acc = torch.promote_types(values.dtype, torch.float32)
+    out = torch.zeros((n,) + tuple(values.shape[1:]), dtype=acc,
                       device=values.device)
     if n == 0:
         return out.to(out_dtype)
@@ -85,7 +93,7 @@ def csr_segment_sum_plain(values: torch.Tensor, order: Optional[torch.Tensor],
     keep = ((seg >= 0) & (seg < n - 1)).reshape(
         (-1,) + (1,) * (values.dim() - 1))
     picked = rows if order is None else order.long()
-    vals = values.index_select(0, picked).float() * keep
+    vals = values.index_select(0, picked).to(acc) * keep
     return out.index_add_(0, seg.clamp_min(0), vals).to(out_dtype)
 
 
@@ -192,11 +200,14 @@ class CsrGatherOrdered(torch.autograd.Function):
     """`x[idx]`, whose backward permutes the cotangent by `order` (a
     permutation that sorts `idx` into contiguous segments, one per row of
     x, starting at `seg_starts`; None where `idx` is sorted already) and
-    sums each segment."""
+    sums each segment. `closed`: `seg_starts` holds one bound more than x
+    has rows, the end of the last row's segment, so the last row is summed
+    too (the segment after it is the kernel's zeroed one, dropped)."""
 
     @staticmethod
-    def forward(ctx, x, idx, order, seg_starts):
+    def forward(ctx, x, idx, order, seg_starts, closed=False):
         ctx.save_for_backward(order, seg_starts)
+        ctx.closed = closed
         return x.index_select(0, idx)
 
     @staticmethod
@@ -205,7 +216,7 @@ class CsrGatherOrdered(torch.autograd.Function):
         # in the cotangent's type, rounded once from the f32 sum (the
         # kernel writes it so: no separate cast launch)
         dx = csr_segment_sum(g.contiguous(), order, seg_starts, g.dtype)
-        return dx, None, None, None
+        return (dx[:-1] if ctx.closed else dx), None, None, None, None
 
 
 def csr_gather_ordered(x: torch.Tensor, idx: torch.Tensor, order: torch.Tensor,
@@ -218,10 +229,43 @@ def csr_gather_ordered(x: torch.Tensor, idx: torch.Tensor, order: torch.Tensor,
     return CsrGatherOrdered.apply(x, idx, order, seg_starts)
 
 
-def csr_gather(x: torch.Tensor, idx: torch.Tensor,
-               seg_starts: torch.Tensor) -> torch.Tensor:
+def csr_gather(x: torch.Tensor, idx: torch.Tensor, seg_starts: torch.Tensor,
+               closed: bool = False) -> torch.Tensor:
     """`x[idx]` [E, ·] with the segment-sum backward, for the arena's own
-    sort key: the gather of q by dst, with `seg_starts` = row_ptr[:-1]."""
+    sort key: the gather of q by dst, with `seg_starts` = row_ptr[:-1] (x's
+    last row, the dummy, gets a zero gradient). `closed`: `seg_starts` is
+    a row window's R + 1 bounds (its row pointers and the end of its last
+    segment, x [R, ·]), and every row's gradient is summed, the last
+    included: the JAX package's `csr_gather` with its `e_total` end."""
     if not build.needs_grad(x):
         return x.index_select(0, idx)
-    return CsrGatherOrdered.apply(x, idx, None, seg_starts)
+    return CsrGatherOrdered.apply(x, idx, None, seg_starts, closed)
+
+
+class CsrWindowSum(torch.autograd.Function):
+    """Σ of `values`' rows over a row window's CSR segments (kernel 7 on
+    the window's R + 1 bounds, the last row included) → [R, W] in f32;
+    the backward broadcasts each row's cotangent over its segment,
+    `g[dst]`, a plain gather."""
+
+    @staticmethod
+    def forward(ctx, values, bounds, dst):
+        ctx.save_for_backward(dst)
+        ctx.dtype = values.dtype
+        acc = torch.promote_types(values.dtype, torch.float32)
+        return csr_segment_sum(values.contiguous(), None, bounds, acc)[:-1]
+
+    @staticmethod
+    def backward(ctx, g):
+        dst, = ctx.saved_tensors
+        return g.index_select(0, dst).to(ctx.dtype), None, None
+
+
+def csr_window_sum(values: torch.Tensor, bounds: torch.Tensor,
+                   dst: torch.Tensor) -> torch.Tensor:
+    """The JAX package's differentiable `csr_segment_sum`: `values` [E, W]
+    sorted by target row, `bounds` [R + 1] int32 the window's row pointers
+    and the end of its last segment, `dst` [E] each row's window row →
+    [R, W], f32 (float64 stays float64 on the CPU). Kernel 7 forward,
+    gather backward: no scatter in either pass."""
+    return CsrWindowSum.apply(values, bounds, dst)

@@ -4,7 +4,8 @@
 Axes, as in the JAX package:
 - "data": data parallelism over graphs; gradients are summed across it;
 - "edge": partitioning within a batch or a giant graph (the boundary
-  exchange's `all_to_all` and the pooling partials ride it).
+  exchange's `all_to_all` and the pooling partials ride it, and the
+  edge-sharded formulation's per-conv combines and bond-state gather).
 
 The JAX package is single-controller: one process sees every device and
 `shard_map` runs the per-device body. The port runs one process per mesh
@@ -45,6 +46,10 @@ EDGE_AXIS = "edge"
 # exchange's wire volume, forward and backward), as the kernels' wrappers
 # count their launches; the chip smoke run sets it to 0 before a path
 sent_bytes = 0
+# bytes this process has handed to the reductions and gathers below (each
+# call's own input, where the axis has more than one rank), counted the
+# same way
+reduced_bytes = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,10 +208,16 @@ def _staged(rank: Rank, t: torch.Tensor, op: Callable[[torch.Tensor], None]
         op(t)
 
 
+def _count(t: torch.Tensor) -> None:
+    global reduced_bytes
+    reduced_bytes += t.numel() * t.element_size()
+
+
 def all_reduce_sum(rank: Rank, buf: torch.Tensor,
                    axis: Optional[str] = None) -> torch.Tensor:
     """Sum `buf` over the ranks of `axis` (None: all) in place."""
     if rank.axis_size(axis) > 1:
+        _count(buf)
         _staged(rank, buf, lambda t: dist.all_reduce(
             t, op=dist.ReduceOp.SUM, group=rank.group(axis)))
     return buf
@@ -216,9 +227,55 @@ def all_reduce_max(rank: Rank, buf: torch.Tensor,
                    axis: Optional[str] = None) -> torch.Tensor:
     """Elementwise max of `buf` over the ranks of `axis` in place."""
     if rank.axis_size(axis) > 1:
+        _count(buf)
         _staged(rank, buf, lambda t: dist.all_reduce(
             t, op=dist.ReduceOp.MAX, group=rank.group(axis)))
     return buf
+
+
+def pmax(rank: Rank, x: torch.Tensor, axis: str = EDGE_AXIS) -> torch.Tensor:
+    """Elementwise max over the ranks of `axis`, a new tensor without a
+    gradient (the softmax stabilizer's `stop_gradient(pmax)`)."""
+    return all_reduce_max(rank, x.detach().clone(), axis)
+
+
+def _gathered(rank: Rank, x: torch.Tensor, axis: str) -> List[torch.Tensor]:
+    """Every rank's `x` along `axis`, in rank order, exact copies; under
+    gloo a CUDA tensor's copies stay in pinned host memory."""
+    _count(x)
+    src = x.detach().contiguous()
+    if rank.mesh.backend == "gloo" and src.is_cuda:
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        src = host.copy_(src)
+    parts = [torch.empty_like(src) for _ in range(rank.axis_size(axis))]
+    dist.all_gather(parts, src, group=rank.group(axis))
+    return parts
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rank, axis):
+        ctx.rank, ctx.axis = rank, axis
+        return torch.cat(_gathered(rank, x, axis)).to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = g.shape[0] // ctx.rank.axis_size(ctx.axis)
+        pos = ctx.rank.edge if ctx.axis == EDGE_AXIS else ctx.rank.data
+        total = all_reduce_sum(ctx.rank, g.contiguous().clone(), ctx.axis)
+        return total[pos * rows:(pos + 1) * rows], None, None
+
+
+def all_gather_rows(rank: Rank, x: torch.Tensor,
+                    axis: str = EDGE_AXIS) -> torch.Tensor:
+    """Every rank's rows [B, ·] of `axis`, concatenated in rank order →
+    [S·B, ·] (JAX's tiled `all_gather`). Differentiable: its backward sums
+    the cotangents over the axis and keeps this rank's B rows (JAX's
+    transpose, `psum_scatter`), so that a replicated path's gradient is
+    summed S times, as the edge axis' average expects."""
+    if rank.axis_size(axis) == 1:
+        return x
+    return _AllGatherRows.apply(x, rank, axis)
 
 
 def _all_to_all(rank: Rank, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -289,15 +346,9 @@ def psum(rank: Rank, x: torch.Tensor, axis: str = EDGE_AXIS) -> torch.Tensor:
 def all_gather(rank: Rank, x: torch.Tensor,
                axis: Optional[str] = None) -> List[torch.Tensor]:
     """Every rank's `x` (equal shapes), in rank order along `axis`."""
-    n = rank.axis_size(axis)
-    if n == 1:
+    if rank.axis_size(axis) == 1:
         return [x]
-    flat = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    pos = rank.edge if axis == EDGE_AXIS else (
-        rank.data if axis == DATA_AXIS else rank.rank)
-    flat[pos].copy_(x)
-    all_reduce_sum(rank, flat, axis)
-    return list(flat.unbind(0))
+    return [p.to(x.device) for p in _gathered(rank, x, axis)]
 
 
 def broadcast_object(rank: Rank, obj=None):
