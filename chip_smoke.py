@@ -111,8 +111,11 @@ Phases, each printing one line (a failure anywhere exits non-zero):
      distance from each other. profile: `cli.train
      --profile-dir` (1 member × 2 epochs): one trace, the first epoch
      replayed its captured step, and the trace's calls of kernels 5, 6 and
-     7 equal their launches over that epoch; the first epoch's wall traced
-     and untraced. bundle: `cli.bundle export` of the 5-member flagship
+     7 equal their launches over that epoch, the epoch's `gnnep::` spans
+     (its pack wait, steps, staging, replays, readbacks and val) are there
+     as host records only, the epoch captured its step once and its
+     forward at most once; the first epoch's wall traced and untraced.
+     bundle: `cli.bundle export` of the 5-member flagship
      ensemble (f32, bf16) and the kv+e and external-logits ensembles,
      `python -m gnnep_tpu_torch.cli.bundle predict` in a fresh process on
      `[serve]`'s request (bitwise `cli.predict`'s, else the op named and
@@ -385,11 +388,13 @@ def _counter_module(name: str):
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count and the graph replay counts to 0."""
+    """Every kernel's launch count and the graph replay and capture counts
+    to 0."""
     from gnnep_tpu_torch.ops.cuda import graphs
     for name, (_, attr) in COUNTERS.items():
         setattr(_counter_module(name), attr, 0)
     graphs.replays.update(train=0, eval=0)
+    graphs.captures.update(train=0, eval=0)
 
 
 def read_counts() -> dict:
@@ -2866,12 +2871,17 @@ def phase_profile(root: Path, data: Path, layers: int):
     run untraced: one trace file, written by the trainer's own
     `utils.profiling.maybe_trace`; the traced (first) epoch ran the captured
     step (replays); the trace's calls of kernels 5, 6 and 7 equal their
-    launch counts over that epoch. Also the first epoch's steps' wall,
-    traced and untraced (from a wrapper around the trainer's
-    `maybe_trace`, which times the block inside the trace's window)."""
+    launch counts over that epoch; the epoch's program spans are in the
+    trace, each only as a host record (no device-side copy on the card's
+    timeline); the epoch captured one step and at most one forward (a
+    one-batch val set captures none). Also the first epoch's wall, traced
+    and untraced (from a wrapper around the trainer's `maybe_trace`, which
+    times the whole epoch inside the trace's window)."""
     import torch
     from gnnep_tpu_torch.cli import train as cli_train
+    from gnnep_tpu_torch.ops.cuda import graphs
     from gnnep_tpu_torch.train import member
+    from gnnep_tpu_torch.utils.profiling import SPAN_PREFIX
     real = member.maybe_trace
     epochs = []
 
@@ -2884,7 +2894,8 @@ def phase_profile(root: Path, data: Path, layers: int):
             yield
             torch.cuda.synchronize()
             epochs.append(dict(wall_s=time.perf_counter() - t0,
-                               counts=read_counts(), replays=read_replays()))
+                               counts=read_counts(), replays=read_replays(),
+                               captures=dict(graphs.captures)))
 
     walls, first = {}, {}
     member.maybe_trace = timed
@@ -2922,20 +2933,39 @@ def phase_profile(root: Path, data: Path, layers: int):
             raise AssertionError(f"profile: the trace holds {calls[pattern]} "
                                  f"calls of {pattern}, the first epoch "
                                  f"launched {launched}")
+    captures = first["traced"]["captures"]
+    if captures["train"] != 1 or captures["eval"] > 1:
+        raise AssertionError(f"profile: the first epoch captured {captures}, "
+                             "not one step and at most one forward")
+    spans: dict = {}
+    for e in json.loads(traces[0].read_text())["traceEvents"]:
+        name = e.get("name", "")
+        if name.startswith(SPAN_PREFIX):
+            spans.setdefault(name[len(SPAN_PREFIX):], set()).add(e.get("cat"))
+    want = {"member.pack_wait", "member.steps", "stage.wait", "stage.copy",
+            "step.eager", "graph.capture", "graph.replay", "step.readback",
+            "member.val", "val.readback", "val.metrics", "member.select",
+            "member.epoch_end"}
+    if not want <= set(spans) or any(c != {"cpu_op"} for c in spans.values()):
+        raise AssertionError(f"profile: the trace's spans {spans}, wanted "
+                             f"{sorted(want)} as host records only")
     launches = {n: counts[n] for n in ("attn_eproj_fwd", "attn_eproj_bwd",
                                        "csr_segment_sum")}
     say("profile", run="cli_train_profile_dir", trace=traces[0].name,
         trace_mb=f"{traces[0].stat().st_size / 1e6:.1f}",
         first_epoch_step_replays=replays["train"],
+        first_epoch_captures=f"train={captures['train']}|"
+                             f"eval={captures['eval']}",
         trace_calls_equal_launch_counts=",".join(
             f"{p}={c}" for p, (c, _) in seen.items()),
-        first_epoch_steps_wall_s=f"traced={first['traced']['wall_s']:.3f}|"
-                                 f"untraced={first['untraced']['wall_s']:.3f}",
+        trace_spans=",".join(sorted(spans)),
+        first_epoch_wall_s=f"traced={first['traced']['wall_s']:.3f}|"
+                           f"untraced={first['untraced']['wall_s']:.3f}",
         cli_seconds=f"traced={walls['traced']:.2f}|"
                     f"untraced={walls['untraced']:.2f}")
     return dict(launches=launches, replays=replays, cli_seconds=walls,
-                first_epoch_steps_wall_s={k: v["wall_s"]
-                                          for k, v in first.items()})
+                first_epoch_wall_s={k: v["wall_s"]
+                                    for k, v in first.items()})
 
 
 def _preds(path: Path):

@@ -33,6 +33,7 @@ from ..data.featurize import N_SG
 from ..ops.graph_attention import (TransformerConv, TransformerConvParams,
                                    transformer_conv)
 from ..ops.segment import segment_mean
+from ..utils.profiling import span
 
 LN_EPS = 1e-5  # torch.nn.LayerNorm default
 
@@ -319,9 +320,11 @@ class DeviceBatch:
                 getattr(self, n).copy_(getattr(batch, n))
             return
         if self.nodes.device.type != "cuda":
-            for n, dt in names:
-                getattr(self, n).copy_(torch.from_numpy(np.ascontiguousarray(
-                    getattr(batch, n), dtype=_NUMPY[dt])))
+            with span("stage.copy"):
+                for n, dt in names:
+                    getattr(self, n).copy_(torch.from_numpy(
+                        np.ascontiguousarray(getattr(batch, n),
+                                             dtype=_NUMPY[dt])))
             return
         if self._staging is None:
             self._staging = [({n: torch.empty(tuple(getattr(self, n).shape),
@@ -331,10 +334,13 @@ class DeviceBatch:
         host, done = self._staging[0]
         self._staging.reverse()
         # this set's previous copies to the card must have read it
-        done.synchronize()
-        for n, _ in names:
-            np.copyto(host[n].numpy(), getattr(batch, n), casting="unsafe")
-            getattr(self, n).copy_(host[n], non_blocking=True)
+        with span("stage.wait"):
+            done.synchronize()
+        with span("stage.copy"):
+            for n, _ in names:
+                np.copyto(host[n].numpy(), getattr(batch, n),
+                          casting="unsafe")
+                getattr(self, n).copy_(host[n], non_blocking=True)
         done.record()
 
 

@@ -15,6 +15,7 @@ from typing import Callable, Dict, Optional, Sequence, TypeVar, Union
 
 import torch
 
+from ...utils.profiling import span
 from . import aggregate, attention, attention_eproj, attention_span, segment_sum
 
 # every launch count of the kernels a train step or a forward can launch
@@ -27,6 +28,8 @@ _COUNTERS = ((attention_eproj, "launches"), (attention_eproj, "bwd_launches"),
 # graph replays since the last reset, by kind: 'train' steps and 'eval'
 # forwards; the chip smoke run sets them to 0 just before it drives a path
 replays = {"train": 0, "eval": 0}
+# graph captures by kind, counted as `replays` are
+captures = {"train": 0, "eval": 0}
 
 T = TypeVar("T")
 
@@ -44,7 +47,8 @@ def launch_counts() -> Dict[str, int]:
 
 class CountedGraph:
     """One CUDA graph of kind 'train' or 'eval' (None: a part of a step
-    whose replays `replays` does not count, a mesh step's optimizer tail). `capture(fn, generator)`
+    whose captures and replays `captures` and `replays` do not count, a
+    mesh step's optimizer tail). `capture(fn, generator)`
     records `fn` (its outputs are the graph's static outputs, in its
     private memory pool), with `generator`'s draws (or each of a list of
     generators') registered so that each replay draws the next numbers of
@@ -75,7 +79,7 @@ class CountedGraph:
         side = torch.cuda.Stream(current.device)
         side.wait_stream(current)
         try:
-            with torch.cuda.stream(side):
+            with span("graph.capture"), torch.cuda.stream(side):
                 self.graph.capture_begin()
                 try:
                     out = fn()
@@ -87,10 +91,13 @@ class CountedGraph:
                 setattr(mod, attr, n)
         current.wait_stream(side)
         self.delta = [b - a for a, b in zip(before, after)]
+        if self.kind is not None:
+            captures[self.kind] += 1
         return out
 
     def replay(self) -> None:
-        self.graph.replay()
+        with span("graph.replay"):
+            self.graph.replay()
         for (mod, attr), n in zip(_COUNTERS, self.delta):
             if n:
                 setattr(mod, attr, getattr(mod, attr) + n)

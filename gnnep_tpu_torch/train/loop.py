@@ -35,6 +35,7 @@ import torch
 from ..models.alignn import Alignn, AlignnConfig, DeviceBatch, alignn_apply
 from ..ops.cuda.graphs import CountedGraph
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 MIN_LOGVAR_FLOOR = -2.9  # reference train.py:39
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -423,8 +424,9 @@ class GraphTrainStep(TrainStep):
         self.static.copy_from(batch)
         if self.graph is None and self.eager_steps < WARMUP_STEPS:
             self.eager_steps += 1
-            return _on_side(self._side,
-                            lambda: self._step(self.static, generator))
+            with span("step.eager"):
+                return _on_side(self._side,
+                                lambda: self._step(self.static, generator))
         if self.graph is None:
             self.graph = CountedGraph("train")
             self.out = self.graph.capture(
@@ -557,7 +559,9 @@ def collect_predictions(forward, model: Alignn, batches: Sequence
     arrays (mean_z [N,T], sigma_z [N,T], y_linear [N,T], sample_index
     [N]). Every batch is queued before the outputs are read back, once."""
     outs = [torch.stack(forward(model, b)) for b in batches]
-    return prediction_rows(batches, torch.cat(outs, dim=1).cpu().numpy())
+    with span("val.readback"):
+        host = torch.cat(outs, dim=1).cpu().numpy()
+    return prediction_rows(batches, host)
 
 
 def prediction_rows(batches: Sequence, host: np.ndarray

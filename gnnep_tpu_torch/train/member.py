@@ -23,6 +23,12 @@ resumed member writes it back into its step's own tensors and its
 generator, so it goes on as the uninterrupted run would have; as in the
 JAX package, KNN weights are not saved (a resumed member recomputes them
 at its first eligible epoch), and the file goes when the member finishes.
+
+Each phase of the member is a span (`utils.profiling.span`, recorded only
+while a torch profiler records): `member.setup`, then each epoch's
+`member.pack_wait`, `member.steps`, `member.val`, `member.select` and
+`member.epoch_end`, then `member.finish`; `--profile-dir` traces the first
+epoch whole.
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ from ..parallel.mesh import (Mesh, Rank, WorldPool, broadcast_object,
                              visible_cards)
 from ..parallel.train_step import (BoundaryTrainStep,
                                    make_aligned_train_step, stack_for_mesh)
-from ..utils.profiling import ThroughputMeter, maybe_trace
+from ..utils.profiling import ThroughputMeter, maybe_trace, span
 from .artifacts import (count_pytree_leaves, load_pytree, load_pytree_meta,
                         save_pytree)
 from .config import TrainConfig
@@ -225,7 +231,8 @@ def _metric_sums(ms) -> np.ndarray:
     steps of `ms` (StepMetrics of 0-d or [K] tensors), read back once."""
     fields = (ms.loss_sum, ms.n_graphs, ms.abs_err_sum, ms.sq_err_sum,
               ms.logvar_sum, ms.n_elements)
-    return torch.stack([f.sum() for f in fields]).double().cpu().numpy()
+    with span("step.readback"):
+        return torch.stack([f.sum() for f in fields]).double().cpu().numpy()
 
 
 def resume_path(cfg: TrainConfig, member_seed: int) -> Path:
@@ -373,133 +380,141 @@ def train_member(
     over the mesh's edge axis, D at a time, sharing the member's
     parameters and Adam state; they step after the packed batches each
     epoch, in the epoch's shuffled order."""
-    _check_giants(cfg, giant, rank.mesh.n_edge if rank else 1,
-                  list(train_indices) + list(val_indices or []))
-    distributed = rank is not None and rank.mesh.size > 1
-    lead = rank is None or rank.rank == 0
-    hyper = TrainHyper(weight_decay=cfg.weight_decay,
-                       log_sigma_l2=cfg.log_sigma_l2,
-                       feature_jitter_std=cfg.feature_jitter_std,
-                       min_logvar_floor=cfg.min_logvar_floor,
-                       optimizer=cfg.optimizer,
-                       compute_dtype=cfg.compute_dtype)
-    scan_k = max(int(cfg.scan_steps), 0)
-    model = init_alignn(np.random.default_rng(member_seed), model_cfg)
-    if distributed:
-        step = make_aligned_train_step(rank, model, hyper, transformer.means,
-                                       transformer.stds)
-    else:
-        step = make_train_step(model, hyper, transformer.means,
-                               transformer.stds,
-                               rank.device if rank else device)
-    device = step.params[0].device
-    # each slot its own dropout and jitter stream: the member's seed offset
-    # by the slot index
-    generator = torch.Generator(device=device)
-    generator.manual_seed(member_seed + (rank.rank if rank else 0))
-    generators = [generator]
-    forward = make_forward(cfg.min_logvar_floor)
+    with span("member.setup"):
+        _check_giants(cfg, giant, rank.mesh.n_edge if rank else 1,
+                      list(train_indices) + list(val_indices or []))
+        distributed = rank is not None and rank.mesh.size > 1
+        lead = rank is None or rank.rank == 0
+        hyper = TrainHyper(weight_decay=cfg.weight_decay,
+                           log_sigma_l2=cfg.log_sigma_l2,
+                           feature_jitter_std=cfg.feature_jitter_std,
+                           min_logvar_floor=cfg.min_logvar_floor,
+                           optimizer=cfg.optimizer,
+                           compute_dtype=cfg.compute_dtype)
+        scan_k = max(int(cfg.scan_steps), 0)
+        model = init_alignn(np.random.default_rng(member_seed), model_cfg)
+        if distributed:
+            step = make_aligned_train_step(rank, model, hyper,
+                                           transformer.means,
+                                           transformer.stds)
+        else:
+            step = make_train_step(model, hyper, transformer.means,
+                                   transformer.stds,
+                                   rank.device if rank else device)
+        device = step.params[0].device
+        # each slot its own dropout and jitter stream: the member's seed offset
+        # by the slot index
+        generator = torch.Generator(device=device)
+        generator.manual_seed(member_seed + (rank.rank if rank else 0))
+        generators = [generator]
+        forward = make_forward(cfg.min_logvar_floor)
 
-    # the giant-graph boundary path over the mesh's edge axis (one slot
-    # without a mesh): its step shares the member's parameters and state
-    g_step = g_rank = shared_gen = None
-    if giant is not None:
-        g_train_all = giant.split(train_indices)[1]
-        val_norm, g_val = giant.split(list(val_indices or []))
-    else:
-        g_train_all, g_val = [], []
-        val_norm = list(val_indices or [])
-    if g_train_all or g_val:
-        g_rank = rank or Rank(make_mesh(1, 1, devices=[str(device)]), 0)
-        g_step = BoundaryTrainStep(step, g_rank, giant.plan)
-        if g_rank.mesh.n_edge > 1:
-            # the replicated tail's stream, one per data slot
-            shared_gen = torch.Generator(device=device)
-            shared_gen.manual_seed(member_seed + g_rank.mesh.size
-                                   + g_rank.data)
-            generators.append(shared_gen)
+        # the giant-graph boundary path over the mesh's edge axis (one slot
+        # without a mesh): its step shares the member's parameters and state
+        g_step = g_rank = shared_gen = None
+        if giant is not None:
+            g_train_all = giant.split(train_indices)[1]
+            val_norm, g_val = giant.split(list(val_indices or []))
+        else:
+            g_train_all, g_val = [], []
+            val_norm = list(val_indices or [])
+        if g_train_all or g_val:
+            g_rank = rank or Rank(make_mesh(1, 1, devices=[str(device)]), 0)
+            g_step = BoundaryTrainStep(step, g_rank, giant.plan)
+            if g_rank.mesh.n_edge > 1:
+                # the replicated tail's stream, one per data slot
+                shared_gen = torch.Generator(device=device)
+                shared_gen.manual_seed(member_seed + g_rank.mesh.size
+                                       + g_rank.data)
+                generators.append(shared_gen)
 
-    if not lead:
-        cfg = dataclasses.replace(cfg, verbose=False)
-    effective = bootstrap_indices(train_indices, cfg, member_seed)
-    base_lr = cfg.lr
-    sigma_base = cfg.sigma_lr_max if cfg.sigma_lr_max > 0 else base_lr
-    mean_sched = cosine_lr(cfg.epochs, cfg.warmup_epochs, base_lr, cfg.lr_min)
-    sigma_sched = cosine_lr(cfg.epochs, cfg.sigma_warmup_epochs, sigma_base,
-                            cfg.lr_min)
+        if not lead:
+            cfg = dataclasses.replace(cfg, verbose=False)
+        effective = bootstrap_indices(train_indices, cfg, member_seed)
+        base_lr = cfg.lr
+        sigma_base = cfg.sigma_lr_max if cfg.sigma_lr_max > 0 else base_lr
+        mean_sched = cosine_lr(cfg.epochs, cfg.warmup_epochs, base_lr,
+                               cfg.lr_min)
+        sigma_sched = cosine_lr(cfg.epochs, cfg.sigma_warmup_epochs,
+                                sigma_base, cfg.lr_min)
 
-    names = leaf_names(model_cfg)
-    val_batches = (epoch_batches(store, val_norm, budget, shuffle=False)
-                   if val_norm and lead else [])
-    selector = BestSelector(cfg)
-    best_state: Optional[Dict[str, torch.Tensor]] = None
-    patience = max(cfg.early_stop, 0)
-    stale = 0
-    n_steps = 0
-    start_epoch = 1
-    shuffle_rng = np.random.default_rng(member_seed + 17)
-    pack_workers = max(int(cfg.pack_workers), 1)
-    # KNN density-weighting state (opt-in; reference train.py:1822-1916)
-    weights_by_index: Optional[Dict[int, float]] = None
-    weights_active_epoch: Optional[int] = None
-    last_snapshot_epoch: Optional[int] = None
-    t0 = time.time()
+        names = leaf_names(model_cfg)
+        val_batches = (epoch_batches(store, val_norm, budget, shuffle=False)
+                       if val_norm and lead else [])
+        selector = BestSelector(cfg)
+        best_state: Optional[Dict[str, torch.Tensor]] = None
+        patience = max(cfg.early_stop, 0)
+        stale = 0
+        n_steps = 0
+        start_epoch = 1
+        shuffle_rng = np.random.default_rng(member_seed + 17)
+        pack_workers = max(int(cfg.pack_workers), 1)
+        # KNN density-weighting state (opt-in; reference train.py:1822-1916)
+        weights_by_index: Optional[Dict[int, float]] = None
+        weights_active_epoch: Optional[int] = None
+        last_snapshot_epoch: Optional[int] = None
+        t0 = time.time()
 
-    def snapshot() -> Dict[str, torch.Tensor]:
-        return {n: p.detach().to("cpu", copy=True)
-                for n, p in model.named_parameters()}
+        def snapshot() -> Dict[str, torch.Tensor]:
+            return {n: p.detach().to("cpu", copy=True)
+                    for n, p in model.named_parameters()}
 
-    def generator_states() -> list:
-        """Every slot's generator states, in rank order."""
-        mine = [g.get_state() for g in generators]
-        if not distributed:
-            return mine
-        return [st for per_rank in gather_objects(rank, mine)
-                for st in per_rank]
+        def generator_states() -> list:
+            """Every slot's generator states, in rank order."""
+            mine = [g.get_state() for g in generators]
+            if not distributed:
+                return mine
+            return [st for per_rank in gather_objects(rank, mine)
+                    for st in per_rank]
 
-    # mid-training resume (a framework extension: the reference restarts a
-    # crashed member from scratch)
-    rpath = resume_path(cfg, member_seed)
-    n_gens = len(generators) * (rank.mesh.size if distributed else 1)
-    layout = _layout(device, n_gens)
-    if cfg.resume and rpath.exists():
-        template = _resume_leaves(step, names, None, generator_states())
-        _check_layout(rpath, member_seed, layout, len(template))
-        try:
-            leaves, meta = load_pytree(rpath, template)
-            n = len(names)
-            parts = [dict(zip(names, leaves[i * n:(i + 1) * n]))
-                     for i in range(4)]
-            resumed_at, resumed_stale = int(meta["epoch"]) + 1, \
-                int(meta["stale"])
-            best_maes = meta["best_mae_global"], meta["best_mae_reference"]
-            # written into the step's own tensors and the generators in
-            # place: a capture made later reads them where they are
-            step.load_state(parts[0], parts[2], parts[3], int(leaves[4 * n]))
-            mine = leaves[4 * n + 1:]
-            if distributed:
-                k = len(generators)
-                mine = mine[rank.rank * k:(rank.rank + 1) * k]
-            for g, st in zip(generators, mine):
-                g.set_state(torch.from_numpy(st))
-            start_epoch, stale = resumed_at, resumed_stale
-            selector.best_mae_global, selector.best_mae_reference = best_maes
-            selector.best = meta.get("best") or None
-            selector.best_epoch = meta.get("best_epoch")
-            if meta.get("has_best"):
-                best_state = {k: torch.from_numpy(v)
-                              for k, v in parts[1].items()}
-            for _ in range(start_epoch - 1):  # keep the shuffle stream aligned
-                shuffle_rng.permutation(max(len(effective), 1))
-            if cfg.verbose:
-                print(f"[Member {member_seed}] resumed at epoch {start_epoch}")
-        except Exception as exc:
-            print(f"[Member {member_seed}] resume failed ({exc}); starting "
-                  "fresh")
-    meter = ThroughputMeter()
-    n_slots = rank.mesh.size if distributed else 1
+        # mid-training resume (a framework extension: the reference restarts a
+        # crashed member from scratch)
+        rpath = resume_path(cfg, member_seed)
+        n_gens = len(generators) * (rank.mesh.size if distributed else 1)
+        layout = _layout(device, n_gens)
+        if cfg.resume and rpath.exists():
+            template = _resume_leaves(step, names, None, generator_states())
+            _check_layout(rpath, member_seed, layout, len(template))
+            try:
+                leaves, meta = load_pytree(rpath, template)
+                n = len(names)
+                parts = [dict(zip(names, leaves[i * n:(i + 1) * n]))
+                         for i in range(4)]
+                resumed_at, resumed_stale = int(meta["epoch"]) + 1, \
+                    int(meta["stale"])
+                best_maes = meta["best_mae_global"], meta["best_mae_reference"]
+                # written into the step's own tensors and the generators in
+                # place: a capture made later reads them where they are
+                step.load_state(parts[0], parts[2], parts[3],
+                                int(leaves[4 * n]))
+                mine = leaves[4 * n + 1:]
+                if distributed:
+                    k = len(generators)
+                    mine = mine[rank.rank * k:(rank.rank + 1) * k]
+                for g, st in zip(generators, mine):
+                    g.set_state(torch.from_numpy(st))
+                start_epoch, stale = resumed_at, resumed_stale
+                (selector.best_mae_global,
+                 selector.best_mae_reference) = best_maes
+                selector.best = meta.get("best") or None
+                selector.best_epoch = meta.get("best_epoch")
+                if meta.get("has_best"):
+                    best_state = {k: torch.from_numpy(v)
+                                  for k, v in parts[1].items()}
+                # keep the shuffle stream aligned
+                for _ in range(start_epoch - 1):
+                    shuffle_rng.permutation(max(len(effective), 1))
+                if cfg.verbose:
+                    print(f"[Member {member_seed}] resumed at epoch "
+                          f"{start_epoch}")
+            except Exception as exc:
+                print(f"[Member {member_seed}] resume failed ({exc}); "
+                      "starting fresh")
+        meter = ThroughputMeter()
+        n_slots = rank.mesh.size if distributed else 1
 
-    with ThreadPoolExecutor(max_workers=1) as pipeline:
+        pipeline = ThreadPoolExecutor(max_workers=1)
+
         def submit_pack():
             """(pack future, the epoch's giant ids): the permutation is
             drawn here, and the giants ride the same draw."""
@@ -513,135 +528,154 @@ def train_member(
                                    workers=pack_workers), giant_order
 
         next_batches, next_giants = submit_pack()
+
+    with pipeline:
         for epoch in range(start_epoch, cfg.epochs + 1):
-            step.set_lr(mean_sched(epoch - 1), sigma_sched(epoch - 1))
-            use_weights = (cfg.enable_density_weighting
-                           and weights_by_index is not None
-                           and weights_active_epoch is not None
-                           and epoch >= weights_active_epoch)
-            weight_arr = None
-            if use_weights or freq_weights is not None:
-                weight_arr = (np.asarray(freq_weights, dtype=np.float32).copy()
-                              if freq_weights is not None
-                              else np.ones(store.n_graphs, dtype=np.float32))
-                if use_weights:  # compose KNN density × inverse-frequency
-                    for gi, w in weights_by_index.items():
-                        weight_arr[gi] *= w
-            batches = _graft_weights(next_batches.result(), weight_arr)
-            giant_epoch = list(next_giants)
-            if epoch < cfg.epochs:
-                next_batches, next_giants = submit_pack()
-            for b in batches:
-                meter.count_batch(b)
-            # an optimizer step's operand: one batch, or on the mesh this
-            # slot's sub-batch of the next D·E (the epoch's last group
-            # padded with inert batches)
-            units = batches if n_slots == 1 else [
-                stack_for_mesh(batches[i:i + n_slots], n_slots)[rank.rank]
-                for i in range(0, len(batches), n_slots)]
-            sums = np.zeros(6)   # loss, graphs, abs, sq, logvar, n_el
-            # full K-unit chunks read their metrics back once; the
-            # remainder step by step. No padded steps either way.
-            n_scan = (len(units) // scan_k) * scan_k if scan_k > 1 else 0
             with maybe_trace(cfg.profile_dir if epoch == start_epoch and lead
                              else None):
-                for i in range(0, n_scan, max(scan_k, 1)):
-                    sums += _metric_sums(step.run(units[i:i + scan_k],
-                                                  generator))
-                for b in units[n_scan:]:
-                    sums += _metric_sums(step(b, generator))
-                n_steps += len(units)
-                # giants: one boundary step per D of them (bootstrap
-                # duplicates step again)
-                if giant_epoch and g_step is not None:
-                    nd = g_rank.mesh.n_data
-                    for group, tabs in zip(
-                            giant.groups(giant_epoch, nd, weight_arr),
-                            giant.group_tables(giant_epoch, nd)):
-                        rb = RankBoundaryBatch.from_boundary(
-                            group[g_rank.data], tabs[g_rank.data],
-                            g_rank.edge, device)
-                        sums += _metric_sums(g_step(rb, generator,
-                                                    shared_gen))
-                        n_steps += 1
-                        for bb in group:
-                            meter.edges += float(np.asarray(bb.a_mask).sum()
-                                                 + np.asarray(bb.l_mask).sum())
-                            meter.graphs += float(
-                                np.asarray(bb.graph_mask).sum())
-            train_loss = sums[0] / max(sums[1], 1.0)
-            train_mae = sums[2] / max(sums[1], 1.0)
-            train_rmse = math.sqrt(sums[3] / max(sums[5], 1.0))
-            train_logvar = sums[4] / max(sums[5], 1.0)
+                step.set_lr(mean_sched(epoch - 1), sigma_sched(epoch - 1))
+                use_weights = (cfg.enable_density_weighting
+                               and weights_by_index is not None
+                               and weights_active_epoch is not None
+                               and epoch >= weights_active_epoch)
+                weight_arr = None
+                if use_weights or freq_weights is not None:
+                    weight_arr = (
+                        np.asarray(freq_weights, dtype=np.float32).copy()
+                        if freq_weights is not None
+                        else np.ones(store.n_graphs, dtype=np.float32))
+                    if use_weights:  # compose KNN density × inverse-frequency
+                        for gi, w in weights_by_index.items():
+                            weight_arr[gi] *= w
+                with span("member.pack_wait", epoch=epoch):
+                    batches = _graft_weights(next_batches.result(),
+                                             weight_arr)
+                with span("member.steps", epoch=epoch):
+                    giant_epoch = list(next_giants)
+                    if epoch < cfg.epochs:
+                        next_batches, next_giants = submit_pack()
+                    for b in batches:
+                        meter.count_batch(b)
+                    # an optimizer step's operand: one batch, or on the mesh
+                    # this slot's sub-batch of the next D·E (the epoch's
+                    # last group padded with inert batches)
+                    units = batches if n_slots == 1 else [
+                        stack_for_mesh(batches[i:i + n_slots],
+                                       n_slots)[rank.rank]
+                        for i in range(0, len(batches), n_slots)]
+                    sums = np.zeros(6)   # loss, graphs, abs, sq, logvar, n_el
+                    # full K-unit chunks read their metrics back once; the
+                    # remainder step by step. No padded steps either way.
+                    n_scan = ((len(units) // scan_k) * scan_k if scan_k > 1
+                              else 0)
+                    for i in range(0, n_scan, max(scan_k, 1)):
+                        sums += _metric_sums(step.run(units[i:i + scan_k],
+                                                      generator))
+                    for b in units[n_scan:]:
+                        sums += _metric_sums(step(b, generator))
+                    n_steps += len(units)
+                    # giants: one boundary step per D of them (bootstrap
+                    # duplicates step again)
+                    if giant_epoch and g_step is not None:
+                        nd = g_rank.mesh.n_data
+                        for group, tabs in zip(
+                                giant.groups(giant_epoch, nd, weight_arr),
+                                giant.group_tables(giant_epoch, nd)):
+                            rb = RankBoundaryBatch.from_boundary(
+                                group[g_rank.data], tabs[g_rank.data],
+                                g_rank.edge, device)
+                            sums += _metric_sums(g_step(rb, generator,
+                                                        shared_gen))
+                            n_steps += 1
+                            for bb in group:
+                                meter.edges += float(
+                                    np.asarray(bb.a_mask).sum()
+                                    + np.asarray(bb.l_mask).sum())
+                                meter.graphs += float(
+                                    np.asarray(bb.graph_mask).sum())
+                train_loss = sums[0] / max(sums[1], 1.0)
+                train_mae = sums[2] / max(sums[1], 1.0)
+                train_rmse = math.sqrt(sums[3] / max(sums[5], 1.0))
+                train_logvar = sums[4] / max(sums[5], 1.0)
 
-            # the giants' val forward needs every rank; the rest is rank 0's
-            g_rows = None
-            if g_val:
-                mean, logvar = giant_outputs(g_rank, cast_model(
-                    model, cfg.compute_dtype), giant, g_val,
-                    cfg.min_logvar_floor, cfg.compute_dtype)
-                g_rows = giant_rows(giant, g_val, g_rank.mesh.n_data, mean,
-                                    logvar)[:3]
-            stop = False
-            if lead:
-                parts = []
-                if val_batches:
-                    parts.append(collect_predictions(
-                        forward, model, val_batches)[:3])
-                if g_rows is not None:
-                    parts.append(g_rows)
-                if parts:
-                    mean_z, sigma_z, y_val = (
-                        np.concatenate([p[i] for p in parts])
-                        for i in range(3))
-                    vm = eval_metrics(mean_z, sigma_z, y_val, transformer)
-                else:
-                    vm = {"nll": train_loss, "mae": train_mae,
-                          "rmse": train_rmse, "mae_log": float("nan"),
-                          "coverage": float("nan"), "ece": float("nan"),
-                          "spearman": float("nan"),
-                          "logvar_mean": train_logvar,
-                          "sigma_max": float("nan")}
-
-                if selector.consider(epoch, vm):
-                    best_state = snapshot()
-
-                if cfg.verbose:
-                    print(f"[Member {member_seed}] Epoch {epoch:03d} | "
-                          f"train_loss={_fmt(train_loss)} "
-                          f"train_mae={_fmt(train_mae)} "
-                          f"train_rmse={_fmt(train_rmse)} "
-                          f"train_logvar={_fmt(train_logvar)} | "
-                          f"val_loss={_fmt(vm['nll'])} "
-                          f"val_mae={_fmt(vm['mae'])} "
-                          f"val_rmse={_fmt(vm['rmse'])} "
-                          f"val_cov={_fmt(vm['coverage'])} "
-                          f"val_ece={_fmt(vm['ece'])} "
-                          f"val_spear={_fmt(vm['spearman'])}", flush=True)
-
-                if epoch > _GRACE_EPOCHS:
-                    if selector.significant_improve:
-                        stale = 0
+                with span("member.val", epoch=epoch):
+                    # the giants' val forward needs every rank; the rest is
+                    # rank 0's
+                    g_rows = None
+                    if g_val:
+                        mean, logvar = giant_outputs(g_rank, cast_model(
+                            model, cfg.compute_dtype), giant, g_val,
+                            cfg.min_logvar_floor, cfg.compute_dtype)
+                        g_rows = giant_rows(giant, g_val, g_rank.mesh.n_data,
+                                            mean, logvar)[:3]
+                    parts = []
+                    if lead and val_batches:
+                        parts.append(collect_predictions(
+                            forward, model, val_batches)[:3])
+                    if lead and g_rows is not None:
+                        parts.append(g_rows)
+                    if parts:
+                        mean_z, sigma_z, y_val = (
+                            np.concatenate([p[i] for p in parts])
+                            for i in range(3))
+                        with span("val.metrics"):
+                            vm = eval_metrics(mean_z, sigma_z, y_val,
+                                              transformer)
                     else:
-                        stale += 1
-                        if stale >= patience:
-                            if cfg.verbose:
-                                print(f"Early stopping at epoch {epoch:03d} "
-                                      "(mae plateau)")
-                            stop = True
-                else:
-                    stale = 0
-            if distributed:
-                stop = broadcast_object(rank, stop)
-            if stop:
-                next_batches.cancel()
-                break
+                        vm = {"nll": train_loss, "mae": train_mae,
+                              "rmse": train_rmse, "mae_log": float("nan"),
+                              "coverage": float("nan"), "ece": float("nan"),
+                              "spearman": float("nan"),
+                              "logvar_mean": train_logvar,
+                              "sigma_max": float("nan")}
 
-            if cfg.checkpoint_every > 0 and epoch % cfg.checkpoint_every == 0:
-                states = generator_states()
                 if lead:
-                    save_pytree(rpath, _resume_leaves(step, names, best_state,
-                                                      states),
+                    with span("member.select", epoch=epoch):
+                        if selector.consider(epoch, vm):
+                            best_state = snapshot()
+
+                with span("member.epoch_end", epoch=epoch):
+                    stop = False
+                    if lead:
+                        if cfg.verbose:
+                            print(f"[Member {member_seed}] Epoch {epoch:03d} "
+                                  f"| train_loss={_fmt(train_loss)} "
+                                  f"train_mae={_fmt(train_mae)} "
+                                  f"train_rmse={_fmt(train_rmse)} "
+                                  f"train_logvar={_fmt(train_logvar)} | "
+                                  f"val_loss={_fmt(vm['nll'])} "
+                                  f"val_mae={_fmt(vm['mae'])} "
+                                  f"val_rmse={_fmt(vm['rmse'])} "
+                                  f"val_cov={_fmt(vm['coverage'])} "
+                                  f"val_ece={_fmt(vm['ece'])} "
+                                  f"val_spear={_fmt(vm['spearman'])}",
+                                  flush=True)
+
+                        if epoch > _GRACE_EPOCHS:
+                            if selector.significant_improve:
+                                stale = 0
+                            else:
+                                stale += 1
+                                if stale >= patience:
+                                    if cfg.verbose:
+                                        print("Early stopping at epoch "
+                                              f"{epoch:03d} (mae plateau)")
+                                    stop = True
+                        else:
+                            stale = 0
+                    if distributed:
+                        stop = broadcast_object(rank, stop)
+                    if stop:
+                        next_batches.cancel()
+                        break
+
+                    if (cfg.checkpoint_every > 0
+                            and epoch % cfg.checkpoint_every == 0):
+                        states = generator_states()
+                        if lead:
+                            save_pytree(
+                                rpath, _resume_leaves(step, names,
+                                                      best_state, states),
                                 meta={"epoch": epoch, "stale": stale,
                                       "best_mae_global":
                                           selector.best_mae_global,
@@ -653,37 +687,38 @@ def train_member(
                                       "flat_opt": bool(cfg.flat_opt),
                                       "layout": layout})
 
-            # KNN weight refresh after warmup (activated next epoch); the
-            # giants stay out of the snapshot (their weights stay 1.0)
-            if (cfg.enable_density_weighting
-                    and epoch >= cfg.weight_warmup_epochs
-                    and (weights_by_index is None
-                         or (cfg.knn_refresh > 0
-                             and (last_snapshot_epoch is None
-                                  or epoch - last_snapshot_epoch
-                                  >= cfg.knn_refresh)))):
-                if lead:
-                    weights_by_index = _knn_snapshot(
-                        model, store, cfg, budget,
-                        [g for g in effective
-                         if giant is None or g not in giant], epoch)
-                if distributed:
-                    weights_by_index = broadcast_object(rank,
-                                                        weights_by_index)
-                if weights_by_index is None:
-                    last_snapshot_epoch = weights_active_epoch = None
-                else:
-                    last_snapshot_epoch = epoch
-                    weights_active_epoch = epoch + 1
+                    # KNN weight refresh after warmup (activated next
+                    # epoch); the giants stay out of the snapshot (their
+                    # weights stay 1.0)
+                    if (cfg.enable_density_weighting
+                            and epoch >= cfg.weight_warmup_epochs
+                            and (weights_by_index is None
+                                 or (cfg.knn_refresh > 0
+                                     and (last_snapshot_epoch is None
+                                          or epoch - last_snapshot_epoch
+                                          >= cfg.knn_refresh)))):
+                        if lead:
+                            weights_by_index = _knn_snapshot(
+                                model, store, cfg, budget,
+                                [g for g in effective
+                                 if giant is None or g not in giant], epoch)
+                        if distributed:
+                            weights_by_index = broadcast_object(
+                                rank, weights_by_index)
+                        if weights_by_index is None:
+                            last_snapshot_epoch = weights_active_epoch = None
+                        else:
+                            last_snapshot_epoch = epoch
+                            weights_active_epoch = epoch + 1
 
     # this member's captured programs and their pools go before the next
     # member starts
-    step.close()
-    forward.close()
-
-    best = Alignn(model_cfg)
-    best.load_state_dict(best_state if best_state is not None
-                         else snapshot())
+    with span("member.finish"):
+        step.close()
+        forward.close()
+        best = Alignn(model_cfg)
+        best.load_state_dict(best_state if best_state is not None
+                             else snapshot())
     if lead and rpath.exists():  # member finished: resume state not needed
         try:
             rpath.unlink()

@@ -1,10 +1,12 @@
-"""Observability: throughput counters and torch.profiler tracing (the
-counterpart of `gnnep_tpu.utils.profiling`).
+"""Observability: throughput counters, the program's spans and
+torch.profiler tracing (the counterpart of `gnnep_tpu.utils.profiling`).
 
 `ThroughputMeter` counts (atom + line-graph) edges and graphs per wall
-second, as the JAX package's does; `maybe_trace(dir)` writes a Chrome trace
-of the block it wraps (the trainer wraps a member's first epoch,
-`--profile-dir`).
+second, as the JAX package's does; `span(name)` marks where the host is,
+as a record named `gnnep::<name>` in whatever torch profiler is recording
+on the calling thread, and costs one check otherwise; `maybe_trace(dir)`
+writes a Chrome trace of the block it wraps (the trainer wraps a member's
+first epoch, `--profile-dir`).
 """
 from __future__ import annotations
 
@@ -24,6 +26,10 @@ import torch
 # between traces, enough to drop the first or last kernels of the traced
 # work (`gnnep_tpu_torch/dev/trace_window_probe.py`)
 TRACE_MARGIN_S = 0.5
+
+# the prefix of every span's record name
+SPAN_PREFIX = "gnnep::"
+_OFF = contextlib.nullcontext()
 
 
 class ThroughputMeter:
@@ -47,6 +53,24 @@ class ThroughputMeter:
         dt = max(self.elapsed, 1e-9)
         return (f"{self.edges / dt:,.0f} edges/s, "
                 f"{self.graphs / dt:,.1f} graphs/s over {dt:.1f}s")
+
+
+def span(name: str, **args):
+    """A context that records the block as `gnnep::<name>` while a torch
+    profiler records on this thread (the `--profile-dir` trace, the
+    benchmark's device trace), on the profiler's clock, which is the card's
+    kernels' clock too; `args` (e.g. `epoch=3`) go with the record and show
+    in a trace that records shapes. Otherwise one shared no-op context and
+    no profiler call.
+
+    The record is an operator's, not a user annotation's: it puts no
+    device-side copy of itself on the card's timeline, so a trace's device
+    activity is the card's work alone. Never span code a CUDA graph
+    captures: it runs once, at the capture."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name, (),
+                                                  args)
 
 
 @contextlib.contextmanager
